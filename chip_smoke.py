@@ -1,0 +1,513 @@
+"""Smoke run of the PyTorch port on one NVIDIA GPU: builds the CUDA kernels,
+holds each against its plain PyTorch twin, drives the dense partition game
+end to end at N=16384, K=16, times every kernel, and checks the result.
+
+  python3 chip_smoke.py          # needs one CUDA card and nvcc
+
+Phases (any failure exits non-zero; there is no CPU fallback):
+  1. device — the card, its power limit, provenance, and the kernels'
+     build report (registers, shared memory, spills);
+  2. kernels vs twins on the card — kernel 1 (dissatisfaction from the
+     aggregate) bitwise against its twin, kernel 2 (cost matrix) within a
+     stated tolerance; full N, a ragged N and a row block with the global B;
+  3. the main path — problem from seeds, Appendix-A initial partition,
+     incremental ``refine`` (kernel 1) to a checked equilibrium, then the
+     recompute path (kernel 2) for a bounded number of turns from the same
+     start, with each kernel's launch count over this phase;
+  4. times — CUDA events per kernel at the main path's shapes, beside its
+     twin, the least time the card could take (bound), and a library call.
+
+The line before the last two is the kernels' JSON record; then the card's
+name and power limit; the last line is ``{"ok": true, "device": ...}``.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+
+N = 16384                 # nodes of the main path
+K = 16                    # machines
+MU = 8.0
+SEED = 0
+RECOMPUTE_TURNS = 200     # bounded recompute-path run (kernel 2 per turn)
+KERNEL2_RTOL = 1e-5       # kernel 2 vs twin: |got - want| <= rtol*max(|want|, 1)
+
+# H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s and f32 FLOP/s
+# outside the tensor cores
+PEAK_BYTES_S = 3.35e12
+PEAK_F32_FLOPS = 67e12
+
+
+def log(*args) -> None:
+    print(*args, flush=True)
+
+
+def fail(msg: str) -> None:
+    raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def smi() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, iters: int, warmup: int = 5) -> float:
+    """Mean device time of ``fn`` over ``iters`` back-to-back calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+# ---------------------------------------------------------------------------
+# phase 2: each kernel against its plain twin on the card
+# ---------------------------------------------------------------------------
+
+def check_kernel1(D, agg, r, b, loads, speeds, mu, total_b, theta, label):
+    """Kernel 1 vs twin: best exactly equal, dissat bitwise equal."""
+    err = 0.0
+    for fw in ("c", "ct"):
+        for th in (None, theta):
+            got = D.dissatisfaction_from_aggregate_cuda(
+                agg, r, b, loads, speeds, mu, fw, theta=th,
+                total_weight=total_b)
+            want = D.dissatisfaction_from_aggregate_plain(
+                agg, r, b, loads, speeds, mu, fw, theta=th,
+                total_weight=total_b)
+            torch.cuda.synchronize()
+            if not torch.equal(got[1], want[1]):
+                fail(f"kernel 1 best != twin ({label}, {fw}, "
+                     f"theta={th is not None})")
+            if not torch.equal(got[0], want[0]):
+                fail(f"kernel 1 dissat not bitwise equal to twin ({label}, "
+                     f"{fw}, theta={th is not None}): max |diff| "
+                     f"{float((got[0] - want[0]).abs().max())}")
+            err = max(err, float((got[0] - want[0]).abs().max()))
+    log(f"  kernel 1 {label}: rows={agg.shape[0]} K={agg.shape[1]}: best "
+        f"equal, dissat bitwise equal (c, ct; theta absent and 0.5)")
+    return err
+
+
+def check_kernel2(D, adj, r_cols, r_rows, b, loads, speeds, mu, total_b,
+                  label):
+    """Kernel 2 vs twin, within KERNEL2_RTOL: the twin's aggregate is a
+    cuBLAS product, the kernel's a lane-strided fixed-order sum, so the
+    two round differently."""
+    err = 0.0
+    for fw in ("c", "ct"):
+        got = D.cost_matrix_cuda(adj, r_cols, b, loads, speeds, mu, fw,
+                                 row_assignment=r_rows, total_weight=total_b)
+        want = D.cost_matrix_plain(adj, r_cols, b, loads, speeds, mu, fw,
+                                   row_assignment=r_rows,
+                                   total_weight=total_b)
+        torch.cuda.synchronize()
+        diff = (got - want).abs()
+        bound = KERNEL2_RTOL * want.abs().clamp(min=1.0)
+        if not bool(torch.isfinite(got).all()) or bool((diff > bound).any()):
+            fail(f"kernel 2 vs twin beyond tolerance ({label}, {fw}): max "
+                 f"|diff| {float(diff.max())}")
+        err = max(err, float(diff.max()))
+        log(f"  kernel 2 {label} {fw}: {tuple(got.shape)} max |diff| "
+            f"{float(diff.max()):.3e}, max rel "
+            f"{float((diff / want.abs().clamp(min=1.0)).max()):.3e} "
+            f"(tolerance rtol {KERNEL2_RTOL})")
+    return err
+
+
+def phase_kernels(D, ops, problem, rng):
+    dev = problem.device
+    r = torch.as_tensor(rng.integers(0, K, N).astype(np.int32), device=dev)
+    b = problem.node_weights
+    total_b = torch.sum(b)
+    from repro_torch.core.problem import machine_loads
+    loads = machine_loads(b, r, K)
+    agg = problem.adjacency @ (r.long()[:, None] == torch.arange(
+        K, device=dev)).float()
+    theta = torch.full((N,), 0.5, device=dev)
+    err1 = check_kernel1(D, agg, r, b, loads, problem.speeds, problem.mu,
+                         total_b, theta, "full N")
+    lo, hi = 4096, 4096 + 3001                       # ragged row block
+    err1 = max(err1, check_kernel1(
+        D, agg[lo:hi].contiguous(), r[lo:hi].contiguous(),
+        b[lo:hi].contiguous(), loads, problem.speeds, problem.mu, total_b,
+        theta[lo:hi].contiguous(), "row block [4096, 7097) with global B"))
+    # a ragged N of its own, random aggregate
+    n2 = 1003
+    agg2 = torch.as_tensor(rng.uniform(0, 50, (n2, K)).astype(np.float32),
+                           device=dev)
+    r2 = torch.as_tensor(rng.integers(0, K, n2).astype(np.int32), device=dev)
+    b2 = torch.as_tensor(rng.uniform(0.1, 10, n2).astype(np.float32),
+                         device=dev)
+    loads2 = machine_loads(b2, r2, K)
+    err1 = max(err1, check_kernel1(
+        D, agg2, r2, b2, loads2, problem.speeds, problem.mu, torch.sum(b2),
+        torch.full((n2,), 0.5, device=dev), "ragged N=1003"))
+
+    err2 = check_kernel2(D, problem.adjacency, r, r, b, loads,
+                         problem.speeds, problem.mu, total_b, "full (N, N)")
+    rows = slice(2048, 2048 + 1500)
+    err2 = max(err2, check_kernel2(
+        D, problem.adjacency[rows].contiguous(), r, r[rows].contiguous(),
+        b[rows].contiguous(), loads, problem.speeds, problem.mu, total_b,
+        "row block (1500, N) with global B"))
+    ref = ops.cost_matrix_reference(problem.adjacency, r, b, loads,
+                                    problem.speeds, problem.mu, "c")
+    got = ops.cost_matrix(problem.adjacency, r, b, loads, problem.speeds,
+                          problem.mu, "c")
+    rel = float(((got - ref).abs() / ref.abs().clamp(min=1.0)).max())
+    if rel > KERNEL2_RTOL:
+        fail(f"kernel 2 vs the reference oracle: max rel {rel}")
+    log(f"  kernel 2 vs cost_matrix_ref (c): max rel {rel:.3e}")
+    return err1, err2
+
+
+# ---------------------------------------------------------------------------
+# phase 3: the main path
+# ---------------------------------------------------------------------------
+
+class Recording:
+    """Wraps a refine seam (``dissat_fn`` or ``cost_matrix_fn``) and keeps a
+    device copy of the assignment each of the first ``limit`` turns sees,
+    so the per-turn moves can be read back after the run."""
+
+    def __init__(self, fn, limit: int, state_arg: bool):
+        self.fn, self.limit, self.state_arg = fn, limit, state_arg
+        self.seen: list[torch.Tensor] = []
+        self.calls = 0
+
+    def __call__(self, *args):
+        self.calls += 1
+        if len(self.seen) < self.limit:
+            r = args[1].assignment if self.state_arg else args[1]
+            self.seen.append(r.clone())
+        return self.fn(*args)
+
+    def moves(self, final: torch.Tensor) -> list[tuple[int, int] | None]:
+        """(node, dest) per recorded turn, None where nothing moved.  The
+        run's ``final`` assignment follows the last recorded turn only if
+        every turn was recorded."""
+        seq = self.seen + ([final] if self.calls == len(self.seen) else [])
+        out = []
+        for before, after in zip(seq[:-1], seq[1:]):
+            changed = torch.nonzero(before != after).flatten().tolist()
+            if len(changed) > 1:
+                fail(f"one turn moved {len(changed)} nodes")
+            out.append((changed[0], int(after[changed[0]])) if changed
+                       else None)
+        return out
+
+
+def phase_main(D, ops, problem):
+    from repro_torch.core import costs
+    from repro_torch.core.initial import initial_partition
+    from repro_torch.core.problem import PartitionProblem, make_state
+    from repro_torch.core.refine import DEFAULT_TOL, refine
+
+    D.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r0 = initial_partition(problem.adjacency, K, generator=SEED)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    sizes = torch.bincount(r0.long(), minlength=K).tolist()
+    log(f"  initial_partition: {t_init:.3f} s, cluster sizes {sizes}")
+    c0_0 = float(costs.global_cost_c0(problem, r0))
+    ct0_0 = float(costs.global_cost_ct0(problem, r0))
+    log(f"  initial  C_0 = {c0_0:.6e}  Ct_0 = {ct0_0:.6e}")
+
+    inc = Recording(ops.make_aggregate_dissat_fn(), RECOMPUTE_TURNS + 1,
+                    state_arg=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = refine(problem, r0, "c", max_turns=400_000, dissat_fn=inc)
+    moves, turns = int(res.num_moves), int(res.num_turns)
+    converged = bool(res.converged)
+    wall = time.perf_counter() - t0
+    r = res.assignment
+    c0_1 = float(costs.global_cost_c0(problem, r))
+    ct0_1 = float(costs.global_cost_ct0(problem, r))
+    log(f"  refine (incremental, kernel 1): {moves} moves in {turns} turns, "
+        f"converged={converged}, {wall:.3f} s, "
+        f"{1e3 * wall / max(turns, 1):.4f} ms per turn")
+    log(f"  refined  C_0 = {c0_1:.6e}  Ct_0 = {ct0_1:.6e}")
+    if not converged:
+        fail("incremental refine did not converge")
+    if not (c0_1 < c0_0):
+        fail("C_0 did not descend")
+    # Nash (Eq. 3) on a fresh rebuild: the carried aggregate and a rebuilt
+    # one differ by f32 rounding, so allow 4 ULP of the largest cost
+    cost = costs.cost_matrix(problem, make_state(problem, r), "c")
+    dis, _ = costs.dissatisfaction_from_cost(cost, r)
+    worst = float(dis.max())
+    slack = DEFAULT_TOL + 4 * float(torch.finfo(torch.float32).eps) \
+        * float(cost.abs().max())
+    log(f"  Nash check: max dissatisfaction {worst:.3e} (bound {slack:.3e})")
+    if not worst <= slack:
+        fail("the refined assignment is not an equilibrium")
+
+    rec = Recording(ops.make_core_cost_matrix_fn(), RECOMPUTE_TURNS,
+                    state_arg=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res2 = refine(problem, r0, "c", max_turns=RECOMPUTE_TURNS,
+                  cost_matrix_fn=rec)
+    moves2, turns2 = int(res2.num_moves), int(res2.num_turns)
+    wall2 = time.perf_counter() - t0
+    log(f"  refine (recompute, kernel 2): {moves2} moves in {turns2} turns, "
+        f"{1e3 * wall2 / max(turns2, 1):.4f} ms per turn")
+    # C_0 must descend on every accepted move; evaluated in float64 so the
+    # sum over N node costs does not round away a small gain
+    p64 = PartitionProblem(problem.adjacency.double(),
+                           problem.node_weights.double(),
+                           problem.speeds.double(), problem.mu.double())
+    seq = rec.seen + [res2.assignment]
+    c0s = [float(costs.global_cost_c0(p64, a)) for a in seq]
+    rec_moves = rec.moves(res2.assignment)
+    for t, mv in enumerate(rec_moves):
+        if mv is not None and not c0s[t + 1] < c0s[t]:
+            fail(f"recompute path: C_0 rose on the move at turn {t}: "
+                 f"{c0s[t]} -> {c0s[t + 1]}")
+    inc_moves = inc.moves(r)[:len(rec_moves)]
+    same = 0
+    for a, b in zip(rec_moves, inc_moves):
+        if a != b:
+            break
+        same += 1
+    log(f"  recompute path: C_0 descended on all "
+        f"{sum(m is not None for m in rec_moves)} moves; first {same} of "
+        f"{len(rec_moves)} turns equal the incremental path's")
+    launches = dict(D.launches)
+    log(f"  launches over the main path: {launches}")
+    for name, count in launches.items():
+        if count <= 0:
+            fail(f"kernel {name} was not launched on the main path")
+    return {"r": r, "r0": r0, "launches": launches, "moves": moves,
+            "turns": turns,
+            "wall_s": wall, "ms_per_turn": 1e3 * wall / max(turns, 1),
+            "recompute_ms_per_turn": 1e3 * wall2 / max(turns2, 1),
+            "equal_leading_turns": same, "init_s": t_init,
+            "c0": (c0_0, c0_1), "ct0": (ct0_0, ct0_1), "nash": worst}
+
+
+# ---------------------------------------------------------------------------
+# phase 4: times
+# ---------------------------------------------------------------------------
+
+def kernel_device_us(calls: dict) -> dict:
+    """Mean device time (us) of each kernel, by the profiler: ``calls``
+    maps a kernel name to (function launching it, repetitions)."""
+    from torch.profiler import ProfilerActivity, profile
+    out = {}
+    for name, (fn, reps) in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        hits = [e for e in prof.key_averages()
+                if f"{name}_kernel" in e.key]
+        count = sum(e.count for e in hits)
+        out[name] = (sum(e.self_device_time_total for e in hits) / count
+                     if count else None)
+    return out
+
+
+def phase_times(D, problem, r):
+    from repro_torch.core.problem import machine_loads
+    dev = problem.device
+    b = problem.node_weights
+    total_b = torch.sum(b)
+    loads = machine_loads(b, r, K)
+    onehot = (r.long()[:, None] == torch.arange(K, device=dev)).float()
+    agg = problem.adjacency @ onehot
+    mu, speeds, adj = problem.mu, problem.speeds, problem.adjacency
+
+    def k1():
+        D.dissatisfaction_from_aggregate_cuda(agg, r, b, loads, speeds, mu,
+                                              "c", total_weight=total_b)
+
+    def p1():
+        D.dissatisfaction_from_aggregate_plain(agg, r, b, loads, speeds, mu,
+                                               "c", total_weight=total_b)
+
+    def k2():
+        D.cost_matrix_cuda(adj, r, b, loads, speeds, mu, "c",
+                           total_weight=total_b)
+
+    def p2():
+        D.cost_matrix_plain(adj, r, b, loads, speeds, mu, "c",
+                            total_weight=total_b)
+
+    def lib2():
+        torch.matmul(adj, onehot)
+
+    # in turns (kernel, twin, twin, kernel) so a drifting clock hits both
+    t = {name: [] for name in ("k1", "p1", "k2", "p2", "lib2")}
+    for order in (("k1", "p1", "k2", "p2", "lib2"),
+                  ("lib2", "p2", "k2", "p1", "k1")):
+        for name in order:
+            fn = {"k1": k1, "p1": p1, "k2": k2, "p2": p2, "lib2": lib2}[name]
+            iters = 200 if name in ("k1", "p1") else 20
+            t[name].append(cuda_ms(fn, iters))
+    ms = {name: float(np.mean(v)) for name, v in t.items()}
+    # the events above time back-to-back wrapper calls, so a launch-bound
+    # kernel reads at the host's enqueue rate; the profiler gives the
+    # kernels' own device time
+    device_us = kernel_device_us({"dissat_from_aggregate": (k1, 50),
+                                  "cost_matrix": (k2, 10)})
+
+    f4, i4 = 4, 4
+    nnz = int(torch.count_nonzero(adj))
+    # kernel 1: reads A, r, b, loads, speeds, mu, B once; writes dissat, best
+    bytes1 = f4 * N * K + i4 * N + f4 * N + 2 * f4 * K + 2 * f4 \
+        + f4 * N + i4 * N
+    ops1 = N * K * 12            # degree add, others, cut, load term, min
+    # kernel 2: reads C, r, b, loads, speeds, mu, B once; writes the costs
+    bytes2 = f4 * N * N + i4 * N + f4 * N + 2 * f4 * K + 2 * f4 \
+        + f4 * N * K
+    ops2 = nnz + N * K * 12      # one add per nonzero, then the assembly
+    out = []
+    for name, byt, flops, kern, plain, lib, line in (
+            ("dissat_from_aggregate", bytes1, ops1, ms["k1"], ms["p1"], None,
+             313),
+            ("cost_matrix", bytes2, ops2, ms["k2"], ms["p2"], ms["lib2"],
+             115)):
+        t_bytes = 1e3 * byt / PEAK_BYTES_S
+        t_ops = 1e3 * flops / PEAK_F32_FLOPS
+        out.append({"name": name, "route": "cuda",
+                    "source": "src/repro_torch/kernels/csrc/dissatisfaction.cu",
+                    "replaces": f"src/repro/kernels/dissatisfaction.py:{line}",
+                    "ms": kern, "plain_ms": plain,
+                    "bound_ms": max(t_bytes, t_ops),
+                    "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                    "library_ms": lib})
+        dev_us = device_us[name]
+        log(f"  {name}: kernel {kern:.5f} ms per call ("
+            f"{'not measured' if dev_us is None else f'{dev_us:.2f} us'} "
+            f"on the device), twin "
+            f"{plain:.5f} ms, bound "
+            f"{max(t_bytes, t_ops):.5f} ms "
+            f"({'bytes' if t_bytes >= t_ops else 'operations'}), library "
+            f"{'null' if lib is None else f'{lib:.5f} ms'}")
+    return out
+
+
+def phase_profile(problem, r0, turns: int = 256):
+    """Where a turn's time goes: ``torch.profiler`` over the first
+    ``turns`` turns of the incremental loop — device time against wall
+    time, and device launches per turn."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.refine import refine
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        res = refine(problem, r0, "c", max_turns=turns)
+        done = int(res.num_turns)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_type", None) is not None
+              and str(e.device_type).endswith("CUDA")]
+    device_us = sum(e.self_device_time_total for e in events)
+    launches = sum(e.count for e in events)
+    if device_us <= 0:
+        log("  profiler: no device time recorded (not measured)")
+        return None
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
+    log(f"  profiled {done} turns: wall {1e3 * wall / done:.4f} ms/turn, "
+        f"device {device_us / 1e3 / done:.4f} ms/turn, busy share "
+        f"{device_us / 1e6 / wall:.4f}, {launches / done:.1f} device "
+        f"launches per turn")
+    for e in top:
+        log(f"    {e.key[:60]:60s} {e.count:6d} x "
+            f"{e.self_device_time_total / max(e.count, 1):8.2f} us")
+    return {"wall_ms_per_turn": 1e3 * wall / done,
+            "device_ms_per_turn": device_us / 1e3 / done,
+            "busy_share": device_us / 1e6 / wall,
+            "launches_per_turn": launches / done}
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        fail("no CUDA device: this smoke run needs one GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.graphs.generators import random_degree_graph, \
+        random_weights
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import dissatisfaction as D
+    from repro_torch.kernels import ops
+    from repro_torch.core.problem import make_problem
+    from repro_torch.provenance import provenance
+    t_start = time.perf_counter()
+
+    log("== phase 1: device")
+    card = smi()
+    log(f"  nvidia-smi: {card}")
+    log(f"  provenance: {json.dumps(provenance())}")
+    t0 = time.perf_counter()
+    _build.build_all()
+    log(f"  kernel build: {time.perf_counter() - t0:.1f} s")
+    for stem, report in _build.build_reports.items():
+        for line in report.splitlines():
+            if "Used" in line or "spill" in line or "Compiling" in line:
+                log(f"  [{stem}] {line.strip()}")
+
+    log(f"== set-up: problem N={N}, K={K}, mu={MU} from seed {SEED}")
+    t0 = time.perf_counter()
+    adj_np = random_degree_graph(N, seed=SEED, dmin=3, dmax=6)
+    node_w, edge_w = random_weights(adj_np, seed=SEED + 1, mean=5.0)
+    del adj_np
+    rng = np.random.default_rng(SEED + 2)
+    speeds = rng.uniform(0.5, 2.0, size=K)
+    problem = make_problem(edge_w, node_w, speeds, mu=MU, device="cuda")
+    del edge_w
+    torch.cuda.synchronize()
+    log(f"  built in {time.perf_counter() - t0:.1f} s; speeds "
+        f"{np.round(speeds / speeds.sum(), 4).tolist()}")
+
+    log("== phase 2: kernels vs plain twins on the card")
+    err1, err2 = phase_kernels(D, ops, problem, rng)
+
+    log("== phase 3: main path (initial_partition -> refine)")
+    main_run = phase_main(D, ops, problem)
+
+    log("== phase 4: times (CUDA events, main-path shapes)")
+    kernels = phase_times(D, problem, main_run["r"])
+    log("== phase 5: where a turn's time goes (torch.profiler)")
+    phase_profile(problem, main_run["r0"])
+    for rec, err in zip(kernels, (err1, err2)):
+        rec["launches"] = main_run["launches"][rec["name"]]
+        rec["max_abs_err"] = err
+    log(f"  total {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,9 @@
+"""repro_torch — the PyTorch and CUDA port of ``repro``, for NVIDIA Hopper.
+
+The JAX package ``repro`` stays the reference; this package keeps its
+module names and public signatures so each counterpart is easy to find,
+and imports nothing of it.  Entry points run on ``cuda`` unless the
+caller passes ``device="cpu"``.  Ported so far: the dense partition game
+(``core``), its two refinement kernels (``kernels``), and the graph
+generators (``graphs``, copied).
+"""

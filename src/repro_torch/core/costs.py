@@ -1,0 +1,231 @@
+"""The paper's two node-level cost frameworks and their global potentials
+(PyTorch port of ``repro.core.costs``, dense arms).
+
+Framework 1 (Eq. 1):
+    C_i(r) = (b_i / w_{r_i}) * sum_{j != i, r_j = r_i} b_j
+             + (mu/2) * sum_{j: r_j != r_i} c_ij
+  Global potential (Thm. 3.1):  C_0(r) = sum_i C_i(r), with
+  Delta C_0 = 2 * Delta C_l for a unilateral move of node l.
+
+Framework 2 (Eq. 6):
+    Ct_i(r) = b_i^2/w_{r_i}^2 + (2 b_i / w_{r_i}^2) * sum_{j != i, r_j=r_i} b_j
+              - (2 b_i / w_{r_i}) * B + (mu/2) * sum_{j: r_j != r_i} c_ij
+  Global objective (Eq. 8):  Ct_0(r) = sum_k (L_k / w_k - B)^2 + (mu/2) cut(r),
+  with Delta Ct_0 = Delta Ct_l (Thm. 5.1).  The (mu/2) * unordered-cut
+  convention is the one of DESIGN.md §8.
+
+Every formula keeps the reference's order of operations, so the same
+inputs round the same way.  Sparse problems come with the second port
+slice; every entry point here raises ``NotImplementedError`` on anything
+but a dense :class:`PartitionProblem`.
+"""
+from __future__ import annotations
+
+import torch
+
+from .problem import PartitionProblem, PartitionState, machine_loads
+
+C_FRAMEWORK = "c"     # Eq. 1
+CT_FRAMEWORK = "ct"   # Eq. 6
+FRAMEWORKS = (C_FRAMEWORK, CT_FRAMEWORK)
+
+
+def require_dense(problem) -> None:
+    if not isinstance(problem, PartitionProblem):
+        raise NotImplementedError(
+            f"{type(problem).__name__}: only dense PartitionProblems are "
+            f"ported so far; sparse problems arrive with port slice 2")
+
+
+def row_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis in a fixed order, k ascending, keeping the
+    axis: the order the card's kernels use, so all paths round alike."""
+    total = x[..., 0:1]
+    for k in range(1, x.shape[-1]):
+        total = total + x[..., k:k + 1]
+    return total
+
+
+def one_hot(assignment: torch.Tensor, num_machines: int,
+            dtype=torch.float32) -> torch.Tensor:
+    kidx = torch.arange(num_machines, device=assignment.device)
+    return (assignment.long()[:, None] == kidx).to(dtype)
+
+
+def adjacency_aggregate(adjacency: torch.Tensor, assignment: torch.Tensor,
+                        num_machines: int) -> torch.Tensor:
+    """A[i, k] = sum_j c_ij * 1[r_j = k]; computed as C @ one_hot(r) in
+    full float32 (TF32 is off on every compared path)."""
+    return adjacency @ one_hot(assignment, num_machines, adjacency.dtype)
+
+
+def problem_aggregate(problem, assignment: torch.Tensor,
+                      num_machines: int) -> torch.Tensor:
+    require_dense(problem)
+    return adjacency_aggregate(problem.adjacency, assignment, num_machines)
+
+
+def cut_matrix(adjacency: torch.Tensor, assignment: torch.Tensor,
+               num_machines: int,
+               aggregate: torch.Tensor | None = None) -> torch.Tensor:
+    """cut[i, k] = sum_{j: r_j != k} c_ij  (the mu/2 factor applied later)."""
+    if aggregate is None:
+        aggregate = adjacency_aggregate(adjacency, assignment, num_machines)
+    return row_sum(aggregate) - aggregate
+
+
+def cost_matrix_from_aggregate(aggregate: torch.Tensor,
+                               row_assignment: torch.Tensor,
+                               node_weights: torch.Tensor,
+                               loads: torch.Tensor, speeds: torch.Tensor,
+                               mu: torch.Tensor, framework: str,
+                               total_weight: torch.Tensor | None = None
+                               ) -> torch.Tensor:
+    """O(rows*K) cost assembly from an already-built adjacency aggregate —
+    the one shared cost formula (DESIGN.md §10).
+
+    ``aggregate`` is the (rows, K) block A[i, k] = sum_j c_ij 1[r_j = k];
+    ``row_assignment`` gives the rows' OWN machines; ``total_weight`` is
+    the global weight sum B, required by the Ct framework (defaults to
+    ``sum(node_weights)``, correct only when the rows are the full graph).
+    """
+    b = node_weights
+    k = loads.shape[0]
+    degree = row_sum(aggregate)                                # = sum_j c_ij
+    cut_term = 0.5 * mu * (degree - aggregate)
+    own = one_hot(row_assignment, k, b.dtype)                  # (rows, K)
+    # node i's weight is subtracted only on its CURRENT machine — every
+    # other machine's load already excludes i.
+    others = loads[None, :] - b[:, None] * own
+    if framework == C_FRAMEWORK:
+        load_term = (b[:, None] / speeds[None, :]) * others
+        return load_term + cut_term
+    if framework == CT_FRAMEWORK:
+        if total_weight is None:
+            total_weight = torch.sum(b)
+        inv_w = 1.0 / speeds[None, :]
+        inv_w2 = inv_w * inv_w
+        bcol = b[:, None]
+        load_term = (bcol * bcol) * inv_w2 \
+            + 2.0 * bcol * inv_w2 * others \
+            - 2.0 * bcol * inv_w * total_weight
+        return load_term + cut_term
+    raise ValueError(f"unknown framework {framework!r}")
+
+
+def cost_matrix(problem, state: PartitionState,
+                framework: str = C_FRAMEWORK,
+                aggregate: torch.Tensor | None = None) -> torch.Tensor:
+    """(N, K) matrix of node costs: entry [i, k] = cost of node i if on
+    machine k (column r_i is the node's current cost)."""
+    k = problem.num_machines
+    if aggregate is None:
+        aggregate = problem_aggregate(problem, state.assignment, k)
+    return cost_matrix_from_aggregate(
+        aggregate, state.assignment, problem.node_weights, state.loads,
+        problem.speeds, problem.mu, framework,
+        total_weight=torch.sum(problem.node_weights))
+
+
+def node_costs(problem, state: PartitionState,
+               framework: str = C_FRAMEWORK) -> torch.Tensor:
+    """(N,) current cost of every node under its current assignment."""
+    cm = cost_matrix(problem, state, framework)
+    return cm.gather(1, state.assignment.long()[:, None])[:, 0]
+
+
+def dissatisfaction_from_cost(cost: torch.Tensor,
+                              row_assignment: torch.Tensor,
+                              theta: torch.Tensor | None = None):
+    """Eq. 4 from an already-assembled cost block: I(i) and the arg-best
+    machine, ties toward the lowest machine index (DESIGN.md §7).
+
+    The returned dissatisfaction is net of the per-node migration price
+    ``theta`` (DESIGN.md §11); this is the one place it is subtracted
+    outside the kernels.  ``current`` (a gather) and ``best`` (a min) read
+    the same materialized tensor, so a node on its best machine gets
+    exactly 0.
+    """
+    current = cost.gather(1, row_assignment.long()[:, None])[:, 0]
+    best = torch.min(cost, dim=1).values
+    kidx = torch.arange(cost.shape[1], device=cost.device)
+    best_machine = torch.where(cost <= best[:, None], kidx,
+                               cost.shape[1]).min(dim=1).values
+    dissat = current - best
+    if theta is not None:
+        dissat = dissat - theta
+    return dissat, best_machine.to(torch.int32)
+
+
+def dissatisfaction(problem, state: PartitionState,
+                    framework: str = C_FRAMEWORK,
+                    cost: torch.Tensor | None = None,
+                    theta: torch.Tensor | None = None):
+    """Eq. 4:  I(i) = C_i(r_i) - min_k C_i(k), with the arg-best machine."""
+    if cost is None:
+        cost = cost_matrix(problem, state, framework)
+    return dissatisfaction_from_cost(cost, state.assignment, theta)
+
+
+# ---------------------------------------------------------------------------
+# Global potentials
+# ---------------------------------------------------------------------------
+
+def total_cut(adjacency: torch.Tensor, assignment: torch.Tensor
+              ) -> torch.Tensor:
+    """Unordered cut weight: (1/2) sum_{i,j} c_ij 1[r_i != r_j]."""
+    diff = assignment[:, None] != assignment[None, :]
+    return 0.5 * torch.sum(adjacency * diff)
+
+
+def problem_cut(problem, assignment: torch.Tensor) -> torch.Tensor:
+    require_dense(problem)
+    return total_cut(problem.adjacency, assignment)
+
+
+def potentials_closed_form(loads, sq_loads, cut, speeds, mu, total_weight):
+    """(C_0, Ct_0) as O(K) closed forms of machine-level sums.
+
+    C_0 = sum_k (L_k^2 - S_k)/w_k + mu * cut, with S_k = sum_{i on k}
+    b_i^2; Ct_0 = sum_k (L_k/w_k - B)^2 + mu/2 * cut (Eq. 8).
+    """
+    c0 = torch.sum((loads * loads - sq_loads) / speeds) + mu * cut
+    dev = loads / speeds - total_weight
+    ct0 = torch.sum(dev * dev) + 0.5 * mu * cut
+    return c0, ct0
+
+
+def global_cost_c0(problem, assignment: torch.Tensor) -> torch.Tensor:
+    """C_0(r) = sum_i C_i(r)  (Thm. 3.1 potential, social welfare)."""
+    require_dense(problem)
+    state = PartitionState(assignment,
+                           machine_loads(problem.node_weights, assignment,
+                                         problem.num_machines))
+    return torch.sum(node_costs(problem, state, C_FRAMEWORK))
+
+
+def global_cost_ct0(problem, assignment: torch.Tensor) -> torch.Tensor:
+    """Ct_0(r) = sum_k (L_k / w_k - B)^2 + (mu/2) cut(r)  (Eq. 8)."""
+    b = problem.node_weights
+    loads = machine_loads(b, assignment, problem.num_machines)
+    total = torch.sum(b)
+    dev = loads / problem.speeds - total
+    return torch.sum(dev * dev) + 0.5 * problem.mu * problem_cut(problem,
+                                                                 assignment)
+
+
+def global_cost(problem, assignment: torch.Tensor,
+                framework: str) -> torch.Tensor:
+    if framework == C_FRAMEWORK:
+        return global_cost_c0(problem, assignment)
+    if framework == CT_FRAMEWORK:
+        return global_cost_ct0(problem, assignment)
+    raise ValueError(f"unknown framework {framework!r}")
+
+
+def load_imbalance(problem, assignment: torch.Tensor) -> torch.Tensor:
+    """max_k L_k/w_k divided by B — 1.0 means perfectly balanced."""
+    loads = machine_loads(problem.node_weights, assignment,
+                          problem.num_machines)
+    total = torch.sum(problem.node_weights)
+    return torch.max(loads / problem.speeds) / total

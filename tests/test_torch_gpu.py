@@ -1,0 +1,108 @@
+"""Each CUDA kernel of the port against its plain PyTorch twin, on the card.
+
+These tests need an NVIDIA GPU and nvcc; they carry the ``gpu`` marker
+and skip elsewhere.  They import neither JAX nor the reference package,
+so they also run where only PyTorch is installed:
+
+  PYTHONPATH=src python -m pytest -q --noconftest -m gpu tests/test_torch_gpu.py
+"""
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import dissatisfaction as D
+
+
+def _arrays(n, k, seed):
+    rng = np.random.default_rng(seed)
+    adj = rng.uniform(0, 10, (n, n)) * (rng.random((n, n)) < 0.4)
+    adj = np.triu(adj, 1)
+    adj = (adj + adj.T).astype(np.float32)
+    b = rng.uniform(0.1, 10, n).astype(np.float32)
+    r = rng.integers(0, k, n).astype(np.int32)
+    speeds = rng.uniform(0.2, 2.0, k).astype(np.float32)
+    speeds /= speeds.sum()
+    loads = np.zeros(k, np.float32)
+    np.add.at(loads, r, b)
+    theta = rng.uniform(0, 30, n).astype(np.float32)
+    return adj, r, b, loads, speeds, theta
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _on(card, *arrays):
+    return [torch.from_numpy(np.array(a)).to(card) for a in arrays]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("framework", ["c", "ct"])
+@pytest.mark.parametrize("n,k", [(1003, 16), (300, 128), (7, 2)])
+def test_dissat_kernel_bitwise_twin(card, n, k, framework):
+    """Kernel 1 == its twin bitwise on the card (best and dissat), with
+    and without theta."""
+    adj, r, b, loads, speeds, th = _arrays(n, k, seed=n + k)
+    adj_t, r_t, b_t, loads_t, speeds_t, th_t = _on(card, adj, r, b, loads,
+                                                   speeds, th)
+    agg = adj_t @ (r_t.long()[:, None] == torch.arange(k, device=card)
+                   ).float()
+    mu = torch.tensor(8.0, device=card)
+    for theta in (None, th_t):
+        got = D.dissatisfaction_from_aggregate_cuda(
+            agg, r_t, b_t, loads_t, speeds_t, mu, framework, theta=theta)
+        want = D.dissatisfaction_from_aggregate_plain(
+            agg, r_t, b_t, loads_t, speeds_t, mu, framework, theta=theta)
+        torch.cuda.synchronize()
+        assert torch.equal(got[1], want[1])
+        assert torch.equal(got[0], want[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("framework", ["c", "ct"])
+def test_cost_matrix_kernel_matches_twin(card, framework):
+    """Kernel 2 vs its twin on the card, square and a row block with the
+    global B.  The kernel sums each aggregate entry in a fixed lane order,
+    cuBLAS in its own, hence rtol 1e-5."""
+    adj, r, b, loads, speeds, _ = _arrays(517, 16, seed=5)
+    adj_t, r_t, b_t, loads_t, speeds_t = _on(card, adj, r, b, loads, speeds)
+    mu = torch.tensor(8.0, device=card)
+    got = D.cost_matrix_cuda(adj_t, r_t, b_t, loads_t, speeds_t, mu,
+                             framework)
+    want = D.cost_matrix_plain(adj_t, r_t, b_t, loads_t, speeds_t, mu,
+                               framework)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-3)
+    rows = slice(100, 333)
+    total_b = torch.sum(b_t)
+    got = D.cost_matrix_cuda(adj_t[rows].contiguous(), r_t,
+                             b_t[rows].contiguous(), loads_t, speeds_t, mu,
+                             framework, row_assignment=r_t[rows].contiguous(),
+                             total_weight=total_b)
+    want = D.cost_matrix_plain(adj_t[rows], r_t, b_t[rows], loads_t,
+                               speeds_t, mu, framework,
+                               row_assignment=r_t[rows], total_weight=total_b)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.gpu
+def test_kernels_refuse_what_they_do_not_take(card):
+    """K above the kernels' limit, a wrong dtype and a non-contiguous
+    operand raise before any launch."""
+    adj, r, b, loads, speeds, _ = _arrays(64, 4, seed=6)
+    adj_t, r_t, b_t, loads_t, speeds_t = _on(card, adj, r, b, loads, speeds)
+    agg = torch.zeros((64, D.MAX_K + 1), device=card)
+    with pytest.raises(ValueError, match="K"):
+        D.dissatisfaction_from_aggregate_cuda(
+            agg, r_t, b_t, torch.ones(D.MAX_K + 1, device=card),
+            torch.ones(D.MAX_K + 1, device=card), 8.0, "c")
+    with pytest.raises(ValueError, match="int32"):
+        D.cost_matrix_cuda(adj_t, r_t.long(), b_t, loads_t, speeds_t, 8.0,
+                           "c")
+    with pytest.raises(ValueError, match="contiguous"):
+        D.cost_matrix_cuda(adj_t.T, r_t, b_t, loads_t, speeds_t, 8.0, "c")

@@ -1,0 +1,51 @@
+"""The port stands alone: no module of ``repro_torch``, and not
+``chip_smoke.py``, pulls in JAX or any module of the reference package."""
+from __future__ import annotations
+
+import json
+import os
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent.parent
+
+_PROBE = r"""
+import importlib, json, pkgutil, sys
+sys.path.insert(0, "src")
+import repro_torch
+names = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(
+    repro_torch.__path__, "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+import runpy
+runpy.run_path("chip_smoke.py", run_name="chip_smoke_probe")
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib"))
+             or m == "repro" or m.startswith("repro."))
+print(json.dumps({"modules": len(names), "imported": bad}))
+"""
+
+
+def test_port_imports_no_jax_and_no_reference():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    report = json.loads(out.stdout.strip().splitlines()[-1])
+    assert report["modules"] >= 15
+    assert report["imported"] == []
+
+
+def test_every_port_module_is_listed():
+    """The probe above walks the package; make sure the walk sees the
+    kernel and core modules the slice ships."""
+    names = {m.name for m in pkgutil.walk_packages(
+        [str(REPO / "src" / "repro_torch")], "repro_torch.")}
+    for mod in ("core.problem", "core.costs", "core.aggregate",
+                "core.checkpoint", "core.refine", "core.initial",
+                "kernels.dissatisfaction", "kernels.ops", "kernels.ref",
+                "kernels._build", "graphs.generators", "provenance",
+                "quickstart"):
+        assert f"repro_torch.{mod}" in names
