@@ -1,22 +1,43 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: builds the CUDA kernels,
 holds each against its plain PyTorch twin, drives the dense partition game
-end to end at N=16384, K=16, times every kernel, and checks the result.
+end to end at N=16384, K=16 and the sparse sweep runtime at the reference's
+million-node instance (N=10^6, E=9,002,624, K=8), times every kernel, and
+checks the results.
 
   python3 chip_smoke.py          # needs one CUDA card and nvcc
 
 Phases (any failure exits non-zero; there is no CPU fallback):
   1. device — the card, its power limit, provenance, and the kernels'
      build report (registers, shared memory, spills);
-  2. kernels vs twins on the card — kernel 1 (dissatisfaction from the
-     aggregate) bitwise against its twin, kernel 2 (cost matrix) within a
-     stated tolerance; full N, a ragged N and a row block with the global B;
-  3. the main path — problem from seeds, Appendix-A initial partition,
-     incremental ``refine`` (kernel 1) to a checked equilibrium, then the
-     recompute path (kernel 2) for a bounded number of turns from the same
-     start, with each kernel's launch count over this phase;
-  4. times — CUDA events per kernel at the main path's shapes, beside its
-     twin, the least time the card could take (bound), and a library call.
+  2. dense kernels vs twins on the card — kernel 1 (dissatisfaction from
+     the aggregate) bitwise against its twin, kernel 2 (cost matrix)
+     within a stated tolerance; full N, a ragged N and a row block;
+  3. the dense main path — problem from seeds, Appendix-A initial
+     partition, incremental ``refine`` (kernel 1) to a checked
+     equilibrium, then the recompute path (kernel 2) for a bounded number
+     of turns from the same start, with each kernel's launch count;
+  4. dense times — CUDA events per kernel at the main path's shapes,
+     beside its twin, the least time the card could take (bound), and a
+     library call;
+  5. where a dense turn's time goes (torch.profiler);
+  6. sparse set-up — the reference's million-node instance
+     (``benchmarks/sparse_bench.py``: ``random_degree_graph_edges(10^6,
+     seed=0)``, weights seed 1, K=8 equal speeds, mu=8, r0 from
+     ``default_rng(2)``), checked against the reference's edge count and
+     max degree;
+  7. edge kernels vs twins on the card — kernel 4 (dissatisfaction from
+     edges) bitwise against its twin and against kernel 1 on the sparse
+     aggregate, kernel 5 (sweep election) bitwise against its twin and the
+     first-maximum election from kernel 4; full N and a ragged N;
+  8. the sparse main path — (a) unbounded ``refine_sweeps`` with the
+     adaptive coin (kernel 4 per sweep) to an ε-equilibrium, twice with
+     the same seed (bitwise equal; the second run profiled for the device's
+     busy share); (b) 256 degenerate sweeps on kernel 5 against the same
+     sweeps on kernel 4; (c) sparse ``refine`` (kernel 1 over the carried
+     aggregate) for 2048 turns with ``verify_every``;
+  9. sparse times — kernels 4 and 5 at N=10^6, K=8.
 
+Each path's launch counts are set to 0 just before it and read just after.
 The line before the last two is the kernels' JSON record; then the card's
 name and power limit; the last line is ``{"ok": true, "device": ...}``.
 """
@@ -39,6 +60,17 @@ MU = 8.0
 SEED = 0
 RECOMPUTE_TURNS = 200     # bounded recompute-path run (kernel 2 per turn)
 KERNEL2_RTOL = 1e-5       # kernel 2 vs twin: |got - want| <= rtol*max(|want|, 1)
+
+# the sparse path: the reference's million-node row (BENCH_sparse.json)
+SPARSE_N = 1_000_000
+SPARSE_K = 8
+SPARSE_EDGES = 9_002_624  # padded directed edges the reference recorded
+SPARSE_MAX_DEGREE = 24
+SWEEP_CFG = dict(moves_per_machine=None, move_prob=0.5, epsilon=1e-3)
+SWEEP_CAP = 24            # sweeps allowed to reach the ε-equilibrium
+DEGENERATE_SWEEPS = 256   # run (b): kernel 5 against kernel 4
+SPARSE_TURNS = 2048       # run (c): sparse refine, kernel 1 per turn
+SPARSE_VERIFY = 512
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s and f32 FLOP/s
 # outside the tensor cores
@@ -448,6 +480,290 @@ def phase_profile(problem, r0, turns: int = 256):
             "launches_per_turn": launches / done}
 
 
+# ---------------------------------------------------------------------------
+# phases 6-9: the sparse path
+# ---------------------------------------------------------------------------
+
+def sparse_instance(n: int, k: int, seed: int = 0, device="cuda"):
+    """The reference's sparse benchmark instance
+    (``benchmarks/sparse_bench.py::_sparse_instance``), built the same
+    way from the port's verbatim copy of the generators."""
+    from repro_torch.core.sparse import make_sparse_problem
+    from repro_torch.graphs.generators import (random_degree_graph_edges,
+                                               random_weights_edges)
+    s, r = random_degree_graph_edges(n, seed=seed)
+    b, w = random_weights_edges(n, s, seed=seed + 1, mean=5.0)
+    sp = make_sparse_problem(s, r, w, b, np.ones(k) / k, mu=MU,
+                             device=device)
+    r0 = torch.as_tensor(np.random.default_rng(seed + 2).integers(0, k, n)
+                         .astype(np.int32), device=device)
+    return sp, r0
+
+
+def check_edge_kernels(D, E, sp, r, theta, label):
+    """Kernel 4 == twin == kernel 1 on the window-summed aggregate, and
+    kernel 5 == twin == the first-max election from kernel 4, all
+    bitwise; returns the largest difference seen (0.0 when bitwise)."""
+    from repro_torch.core.costs import adjacency_aggregate_sparse
+    from repro_torch.core.problem import machine_loads
+    k = sp.num_machines
+    b = sp.node_weights
+    loads = machine_loads(b, r, k)
+    agg = adjacency_aggregate_sparse(sp, r)
+    err = 0.0
+    for fw in ("c", "ct"):
+        for th in (None, theta):
+            args = (sp, r, b, loads, sp.speeds, sp.mu, fw)
+            got = E.dissatisfaction_from_edges_cuda(*args, theta=th)
+            wants = {"twin": E.dissatisfaction_from_edges_plain(*args,
+                                                                theta=th),
+                     "kernel 1": D.dissatisfaction_from_aggregate_cuda(
+                         agg, r, b, loads, sp.speeds, sp.mu, fw, theta=th)}
+            sweep = E.sweep_candidates_from_edges_cuda(*args, theta=th)
+            wants5 = {"twin": E.sweep_candidates_from_edges_plain(*args,
+                                                                  theta=th),
+                      "election from kernel 4": E.elect(got[0], got[1], r,
+                                                        k)}
+            torch.cuda.synchronize()
+            tag = f"({label}, {fw}, theta={th is not None})"
+            for name, want in wants.items():
+                diff = float((got[0] - want[0]).abs().max())
+                err = max(err, diff)
+                if not torch.equal(got[1], want[1]):
+                    fail(f"kernel 4 best != {name} {tag}")
+                if not torch.equal(got[0], want[0]):
+                    fail(f"kernel 4 dissat not bitwise equal to {name} "
+                         f"{tag}: max |diff| {diff}")
+            for name, want in wants5.items():
+                diff = float((sweep[0] - want[0]).abs().max())
+                err = max(err, diff)
+                for part, a, c in zip(("gains", "picks", "dests"), sweep,
+                                      want):
+                    if not torch.equal(a, c):
+                        fail(f"kernel 5 {part} != {name} {tag}: max |diff| "
+                             f"{float((a.double() - c.double()).abs().max())}")
+    log(f"  kernels 4, 5 {label}: N={sp.num_nodes} E={sp.num_edges} "
+        f"K={k}: kernel 4 bitwise equal to its twin and to kernel 1 on the "
+        f"sparse aggregate; kernel 5 bitwise equal to its twin and to the "
+        f"election from kernel 4 (c, ct; theta absent and 0.5)")
+    return err
+
+
+def phase_edge_kernels(D, E, sp, r0):
+    err = check_edge_kernels(D, E, sp, r0,
+                             torch.full((sp.num_nodes,), 0.5, device="cuda"),
+                             "full N")
+    small, r_small = sparse_instance(1003, SPARSE_K, seed=5)
+    err = max(err, check_edge_kernels(
+        D, E, small, r_small, torch.full((1003,), 0.5, device="cuda"),
+        "ragged N=1003"))
+    return err
+
+
+def _same_run(a, b) -> bool:
+    (ra, outs_a), (rb, outs_b) = a, b
+    return (all(torch.equal(x, y) for x, y in zip(ra[:5], rb[:5]))
+            and all(torch.equal(x, y) for x, y in zip(outs_a, outs_b)))
+
+
+def busy_share(fn):
+    """Run ``fn`` under torch.profiler; return (result, wall s, device s,
+    device launches)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_type", None) is not None
+              and str(e.device_type).endswith("CUDA")]
+    device_s = sum(e.self_device_time_total for e in events) / 1e6
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
+    return out, wall, device_s, sum(e.count for e in events), top
+
+
+def phase_sparse_main(D, E, ops, sp, r0):
+    from repro_torch.core import costs
+    from repro_torch.core.refine import DEFAULT_TOL, refine, refine_sweeps
+    n = sp.num_nodes
+    c0_0 = float(costs.global_cost_c0(sp, r0))
+    imb0 = float(costs.load_imbalance(sp, r0))
+    log(f"  initial  C_0 = {c0_0:.6e}  load imbalance {imb0:.6f}")
+    edge_fn = ops.make_edge_dissat_fn(sp)
+
+    def run_a():
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        return refine_sweeps(sp, r0, "c", max_sweeps=SWEEP_CAP,
+                             generator=gen, dissat_fn=edge_fn, **SWEEP_CFG)
+
+    D.reset_launches()
+    E.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res_a, outs_a = run_a()
+    sweeps, moves = int(res_a.num_turns), int(res_a.num_moves)
+    converged = bool(res_a.converged)
+    wall_a = time.perf_counter() - t0
+    k4_a = E.launches["dissat_from_edges"]
+    r = res_a.assignment
+    c0_1 = float(costs.global_cost_c0(sp, r))
+    imb1 = float(costs.load_imbalance(sp, r))
+    log(f"  (a) refine_sweeps unbounded, move_prob 0.5, eps 1e-3, kernel 4: "
+        f"{sweeps} sweeps, {moves} moves, converged={converged}, "
+        f"{wall_a:.3f} s, {1e3 * wall_a / max(sweeps, 1):.3f} ms per sweep, "
+        f"kernel 4 launches {k4_a}")
+    log(f"      C_0 {c0_0:.6e} -> {c0_1:.6e}, load imbalance {imb0:.6f} -> "
+        f"{imb1:.6f} (reference on a CPU: 17 sweeps, 1301 moves, "
+        f"BENCH_sparse.json)")
+    if not converged or sweeps > SWEEP_CAP:
+        fail("run (a) did not reach its ε-equilibrium")
+    if not c0_1 < c0_0:
+        fail("run (a): C_0 did not descend")
+    carried = float(outs_a[0][sweeps - 1])
+    if abs(carried - c0_1) > 1e-3 * abs(c0_1):
+        fail(f"run (a): carried C_0 {carried} vs fresh {c0_1}")
+    # the ε-equilibrium on a fresh reduction: no node above the floor
+    # whose destination still has room (the run's own stop rule)
+    b = sp.node_weights
+    from repro_torch.core.problem import machine_loads
+    loads = machine_loads(b, r, SPARSE_K)
+    dis, best = edge_fn(None, r, b, loads, sp.speeds, sp.mu, "c",
+                        torch.sum(b))
+    thresh = DEFAULT_TOL + SWEEP_CFG["epsilon"] * abs(carried) / n
+    norm = loads / sp.speeds
+    gap = 0.5 * (norm[r.long()] - norm[best.long()]) * sp.speeds[best.long()]
+    open_nodes = int(((dis > thresh) & (gap > 0)).sum())
+    log(f"      ε-floor {thresh:.4f}: {int((dis > thresh).sum())} nodes "
+        f"above it, {open_nodes} of them with room at their destination")
+    if open_nodes:
+        fail("run (a) stopped above its ε-equilibrium")
+
+    rep, wall_rep, dev_s, dev_launches, top = busy_share(run_a)
+    if not _same_run((res_a, outs_a), rep):
+        fail("run (a) repeated with the same seed is not bitwise equal")
+    log(f"  (a) repeated under torch.profiler: bitwise equal; wall "
+        f"{wall_rep:.3f} s, device {dev_s:.4f} s, busy share "
+        f"{dev_s / wall_rep:.4f}, {dev_launches / max(sweeps, 1):.1f} device "
+        f"launches per sweep")
+    for e in top:
+        log(f"    {e.key[:60]:60s} {e.count:6d} x "
+            f"{e.self_device_time_total / max(e.count, 1):8.2f} us")
+
+    t0 = time.perf_counter()
+    by5 = refine_sweeps(sp, r0, "c", max_sweeps=DEGENERATE_SWEEPS,
+                        sweep_fn=ops.make_edge_sweep_fn(sp))
+    torch.cuda.synchronize()
+    wall5 = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    by4 = refine_sweeps(sp, r0, "c", max_sweeps=DEGENERATE_SWEEPS,
+                        dissat_fn=edge_fn)
+    torch.cuda.synchronize()
+    wall4 = time.perf_counter() - t0
+    same = _same_run(by5, by4)
+    s5 = int(by5[0].num_turns)
+    log(f"  (b) {DEGENERATE_SWEEPS} degenerate sweeps: kernel 5 "
+        f"{1e3 * wall5 / max(s5, 1):.3f} ms per sweep, kernel 4 "
+        f"{1e3 * wall4 / max(s5, 1):.3f} ms per sweep; {s5} active, "
+        f"{int(by5[0].num_moves)} moves; assignment, moves and per-sweep "
+        f"potentials equal: {same}")
+    if not same:
+        fail("run (b): kernel 5 and kernel 4 runs differ")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res_c = refine(sp, r0, "c", max_turns=SPARSE_TURNS,
+                   verify_every=SPARSE_VERIFY)
+    turns_c, moves_c = int(res_c.num_turns), int(res_c.num_moves)
+    wall_c = time.perf_counter() - t0
+    drift = float(res_c.aggregate_drift)
+    c0_c = float(costs.global_cost_c0(sp, res_c.assignment))
+    log(f"  (c) sparse refine, kernel 1: {moves_c} moves in {turns_c} turns, "
+        f"{1e3 * wall_c / max(turns_c, 1):.4f} ms per turn, drift against a "
+        f"rebuild every {SPARSE_VERIFY} turns {drift:.3e}; C_0 "
+        f"{c0_0:.6e} -> {c0_c:.6e}")
+    if not (moves_c > 0 and c0_c < c0_0 and drift <= 1e-3 * abs(c0_c)):
+        fail("run (c): no descent, or drift beyond 1e-3 of C_0")
+    launches = {**D.launches, **E.launches}
+    log(f"  launches over the sparse path: {launches}")
+    for name in ("dissat_from_aggregate", "dissat_from_edges",
+                 "sweep_candidates_from_edges"):
+        if launches[name] <= 0:
+            fail(f"kernel {name} was not launched on the sparse path")
+    return {"launches": launches, "r": r, "sweeps": sweeps, "moves": moves,
+            "ms_per_sweep": 1e3 * wall_a / max(sweeps, 1),
+            "busy_share": dev_s / wall_rep}
+
+
+def phase_sparse_times(E, sp, r):
+    from repro_torch.core.problem import machine_loads
+    k = sp.num_machines
+    n, e = sp.num_nodes, sp.num_edges
+    b = sp.node_weights
+    total_b = torch.sum(b)
+    loads = machine_loads(b, r, k)
+    args = (sp, r, b, loads, sp.speeds, sp.mu, "c")
+    real = sp.edge_weights != 0
+    csr = torch.sparse_coo_tensor(
+        torch.stack([sp.senders[real].long(), sp.receivers[real].long()]),
+        sp.edge_weights[real], (n, n)).coalesce().to_sparse_csr()
+    onehot = (r.long()[:, None] == torch.arange(k, device="cuda")).float()
+
+    fns = {
+        "k4": lambda: E.dissatisfaction_from_edges_cuda(
+            *args, total_weight=total_b),
+        "p4": lambda: E.dissatisfaction_from_edges_plain(
+            *args, total_weight=total_b),
+        "k5": lambda: E.sweep_candidates_from_edges_cuda(
+            *args, total_weight=total_b),
+        "p5": lambda: E.sweep_candidates_from_edges_plain(
+            *args, total_weight=total_b),
+        "lib": lambda: torch.sparse.mm(csr, onehot),
+    }
+    t = {name: [] for name in fns}
+    for order in (list(fns), list(fns)[::-1]):
+        for name in order:
+            iters = 50 if name in ("k4", "k5", "lib") else 5
+            t[name].append(cuda_ms(fns[name], iters))
+    ms = {name: float(np.mean(v)) for name, v in t.items()}
+    device_us = kernel_device_us({"dissat_from_edges": (fns["k4"], 20),
+                                  "sweep_candidates_from_edges":
+                                  (fns["k5"], 20)})
+    f4, i4 = 4, 4
+    # each input read once: row offsets, receivers, weights, assignment,
+    # node weights, loads, speeds, mu, B; then the outputs written once
+    reads = i4 * n + i4 * e + f4 * e + i4 * n + f4 * n + 2 * f4 * k + 2 * f4
+    tiles = -(-n // 128)
+    bytes4 = reads + f4 * n + i4 * n
+    bytes5 = reads + tiles * k * (f4 + 2 * i4)
+    ops4 = int(e) + n * k * 12     # one add per edge, then the assembly
+    out = []
+    for name, byt, flops, kern, plain, line in (
+            ("dissat_from_edges", bytes4, ops4, ms["k4"], ms["p4"], 170),
+            ("sweep_candidates_from_edges", bytes5, ops4 + n * k, ms["k5"],
+             ms["p5"], 245)):
+        t_bytes = 1e3 * byt / PEAK_BYTES_S
+        t_ops = 1e3 * flops / PEAK_F32_FLOPS
+        out.append({"name": name, "route": "cuda",
+                    "source": "src/repro_torch/kernels/csrc/edge_block.cu",
+                    "replaces": f"src/repro/kernels/edge_block.py:{line}",
+                    "ms": kern, "plain_ms": plain,
+                    "bound_ms": max(t_bytes, t_ops),
+                    "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                    "library_ms": ms["lib"]})
+        dev_us = device_us[name]
+        log(f"  {name}: kernel {kern:.5f} ms per call ("
+            f"{'not measured' if dev_us is None else f'{dev_us:.2f} us'} "
+            f"on the device), twin {plain:.5f} ms, bound "
+            f"{max(t_bytes, t_ops):.5f} ms "
+            f"({'bytes' if t_bytes >= t_ops else 'operations'}, "
+            f"{byt / 1e6:.1f} MB), library {ms['lib']:.5f} ms "
+            f"(torch.sparse.mm CSR @ one-hot, aggregate only)")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke run needs one GPU")
@@ -457,6 +773,7 @@ def main() -> int:
         random_weights
     from repro_torch.kernels import _build
     from repro_torch.kernels import dissatisfaction as D
+    from repro_torch.kernels import edge_block as E
     from repro_torch.kernels import ops
     from repro_torch.core.problem import make_problem
     from repro_torch.provenance import provenance
@@ -500,6 +817,33 @@ def main() -> int:
     for rec, err in zip(kernels, (err1, err2)):
         rec["launches"] = main_run["launches"][rec["name"]]
         rec["max_abs_err"] = err
+    del problem
+    torch.cuda.empty_cache()
+
+    log(f"== phase 6: sparse set-up, N={SPARSE_N}, K={SPARSE_K}, mu={MU} "
+        f"(the reference's million-node instance)")
+    t0 = time.perf_counter()
+    sp, r0 = sparse_instance(SPARSE_N, SPARSE_K)
+    torch.cuda.synchronize()
+    log(f"  built on the host in {time.perf_counter() - t0:.1f} s: "
+        f"E={sp.num_edges} padded directed edges, max_degree "
+        f"{sp.max_degree}")
+    if (sp.num_edges, sp.max_degree) != (SPARSE_EDGES, SPARSE_MAX_DEGREE):
+        fail(f"sparse instance is not the reference's: E={sp.num_edges}, "
+             f"max_degree={sp.max_degree}")
+
+    log("== phase 7: edge kernels vs plain twins on the card")
+    err45 = phase_edge_kernels(D, E, sp, r0)
+
+    log("== phase 8: sparse main path (refine_sweeps, refine)")
+    sparse_run = phase_sparse_main(D, E, ops, sp, r0)
+
+    log("== phase 9: sparse times (CUDA events, N=10^6, K=8)")
+    edge_kernels = phase_sparse_times(E, sp, sparse_run["r"])
+    for rec in edge_kernels:
+        rec["launches"] = sparse_run["launches"][rec["name"]]
+        rec["max_abs_err"] = err45
+    kernels += edge_kernels
     log(f"  total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

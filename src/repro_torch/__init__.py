@@ -3,7 +3,8 @@
 The JAX package ``repro`` stays the reference; this package keeps its
 module names and public signatures so each counterpart is easy to find,
 and imports nothing of it.  Entry points run on ``cuda`` unless the
-caller passes ``device="cpu"``.  Ported so far: the dense partition game
-(``core``), its two refinement kernels (``kernels``), and the graph
-generators (``graphs``, copied).
+caller passes ``device="cpu"``.  Ported so far: the partition game on
+dense and sparse (edge-list) problems with its refinement entry points,
+``refine_sweeps`` and cluster moves (``core``), four refinement kernels
+(``kernels``), and the graph generators (``graphs``, copied).
 """

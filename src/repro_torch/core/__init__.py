@@ -1,2 +1,2 @@
-"""The partition game: problem, costs, aggregate carry, refinement and
-initial partitioning (dense problems)."""
+"""The partition game: dense and sparse problems, costs, aggregate carry,
+refinement (turns, sweeps, cluster moves) and initial partitioning."""

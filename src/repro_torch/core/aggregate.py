@@ -1,5 +1,5 @@
 """Persistent aggregate state for incremental refinement (DESIGN.md §10),
-PyTorch port of ``repro.core.aggregate`` (dense arms).
+PyTorch port of ``repro.core.aggregate``.
 
 A turn's decision needs only aggregate state: the (N, K) adjacency
 aggregate A[i, k] = sum_j c_ij 1[r_j = k], the O(K) load vector and the
@@ -12,10 +12,20 @@ global potentials.  The refinement loop carries all of it:
     (Thm. 3.1: ΔC_0 = 2 ΔC_l;  Thm. 5.1: ΔCt_0 = ΔCt_l), read off the
     moved node's O(K) cost rows.
 
+The carried (N, K) aggregate is the same for both representations; only
+the update differs.  A dense move adds column l of the adjacency (O(N));
+a sparse move (:class:`~repro_torch.core.sparse.SparseProblem`) adds the
+moved node's ``max_degree`` window of incident edges (O(deg)), and R
+simultaneous moves add R windows.  Window contributions to one row are
+added one at a time in the reference's scatter order — window r
+ascending, then slot d ascending — by :func:`add_windows`, never with
+float atomics, so the carried values are bitwise the reference's.
+
 States are never updated in place: every update returns new tensors, so a
 checkpoint (:mod:`repro_torch.core.checkpoint`) may alias a state safely.
-Gates (``do_move``) are device booleans, so a turn never waits on the
-card.
+Gates (``do_move``) are device booleans, so a unilateral turn never waits
+on the card; a multi-window update reads one count back (see
+:func:`add_windows`).
 """
 from __future__ import annotations
 
@@ -25,6 +35,7 @@ import torch
 
 from . import costs
 from .problem import as_assignment, machine_loads
+from .sparse import node_incident_edges_batched, window_slots
 
 
 class AggregateState(NamedTuple):
@@ -52,8 +63,8 @@ def _flag(x, device) -> torch.Tensor:
 
 def init_aggregate_state(problem, assignment) -> AggregateState:
     """Build the carry from scratch: one O(N^2 K) aggregate product and one
-    O(N^2) pass per potential — paid once."""
-    costs.require_dense(problem)
+    O(N^2) pass per potential — paid once.  Sparse problems pay O(E K)
+    + O(E) instead (window sums over the edge list, closed-form C_0)."""
     assignment = as_assignment(assignment, problem.device)
     k = problem.num_machines
     aggregate = costs.problem_aggregate(problem, assignment, k)
@@ -90,17 +101,50 @@ def potential_deltas(agg_row, b_node, source, dest, loads, speeds, mu,
     return dc0.reshape(()), dct0.reshape(())
 
 
+def add_windows(aggregate, targets, contrib, rounds: int | None = None):
+    """``aggregate`` with ``contrib[m]`` added to row ``targets[m]`` for
+    every m, one addition at a time in ascending m, as the reference's
+    sequential scatter-add does — without float atomics.
+
+    Zero contributions are identities (an aggregate entry is never -0.0)
+    and go to a scratch row.  The others are grouped by target, order
+    kept (a stable sort), and applied in rounds: round j adds each
+    target's j-th contribution, so no two writes of a round share a row.
+    ``rounds`` bounds the deepest group; when it is None the depth is
+    read back from the device (one host sync).  Returns a new tensor.
+    """
+    n, k = aggregate.shape
+    nonzero = (contrib != 0).any(dim=1)
+    t = torch.where(nonzero, targets.long(), n)
+    t_sorted, order = torch.sort(t, stable=True)
+    c_sorted = contrib.index_select(0, order)
+    rank = torch.arange(t.shape[0], device=t.device) \
+        - torch.searchsorted(t_sorted, t_sorted)
+    if rounds is None:
+        # host sync: the most nonzero contributions any one row receives
+        rounds = int(torch.where(t_sorted < n, rank + 1, 0).max()) \
+            if t.shape[0] else 0
+    out = torch.cat([aggregate, aggregate.new_zeros((1, k))])
+    for j in range(rounds):
+        row = torch.where(rank == j, t_sorted, n)
+        out[row] = out.index_select(0, row) + c_sorted
+    return out[:n]
+
+
 def apply_move(problem, agg: AggregateState, node, source, dest, do_move,
                total_weight) -> AggregateState:
     """Apply one (gated) unilateral move: rank-1 aggregate update, O(1)
     load delta, O(K) potential deltas via the exact identities.
 
-    The rank-1 update is the outer product of column l with the ``±1``
-    one-hot column delta, zeroed when ``do_move`` is false: the untouched
-    columns (and a rejected move) add an exact ``+0.0``, so the values are
-    bitwise those of the reference's gated update.
+    Dense: the rank-1 update is the outer product of column l with the
+    ``±1`` one-hot column delta, zeroed when ``do_move`` is false: the
+    untouched columns (and a rejected move) add an exact ``+0.0``, so the
+    values are bitwise those of the reference's gated update.  Sparse
+    (DESIGN.md §13.2): only the moved node's incident-edge window is
+    added; its real edges have distinct receivers, so each row gets at
+    most one nonzero contribution and one round of :func:`add_windows`
+    applies it without reading anything back.
     """
-    costs.require_dense(problem)
     dev = problem.device
     k = agg.loads.shape[0]
     # a NaN-poisoned row reports best machine K and never moves; clamp so
@@ -116,8 +160,13 @@ def apply_move(problem, agg: AggregateState, node, source, dest, do_move,
     kidx = torch.arange(k, device=dev)
     col_delta = (kidx == dest).to(dt) - (kidx == source).to(dt)
     col_delta = torch.where(do_move, col_delta, 0.0)
-    col = problem.adjacency.index_select(0, node)[0]   # symmetric: row l
-    aggregate = agg.aggregate + col[:, None] * col_delta[None, :]
+    if costs.is_sparse(problem):
+        nbrs, w = node_incident_edges_batched(problem, node)   # (1, Dmax)
+        aggregate = add_windows(agg.aggregate, nbrs[0],
+                                w[0][:, None] * col_delta[None, :], rounds=1)
+    else:
+        col = problem.adjacency.index_select(0, node)[0]   # symmetric
+        aggregate = agg.aggregate + col[:, None] * col_delta[None, :]
     loads = agg.loads + b_node * col_delta
     moved_to = torch.where(do_move, dest.to(torch.int32),
                            agg.assignment.index_select(0, node))
@@ -142,58 +191,150 @@ def cut_from_aggregate(aggregate, assignment) -> torch.Tensor:
 potentials_closed_form = costs.potentials_closed_form
 
 
+def _set_assignment(assignment, nodes, dests, will_move):
+    """``assignment`` with ``nodes[r]`` set to ``dests[r]`` where
+    ``will_move[r]``; masked writes go to a scratch slot and are dropped
+    (the reference's ``mode="drop"``).  Real movers are distinct nodes."""
+    n = assignment.shape[0]
+    safe = torch.where(will_move, nodes.long(), n)
+    out = torch.cat([assignment, assignment.new_zeros(1)])
+    out[safe] = dests.to(assignment.dtype)
+    return out[:n]
+
+
+def _closed_form_state(problem, aggregate, assignment, total_weight):
+    """The state after a simultaneous update: loads and both potentials
+    re-derived via the (loads, sq_loads, cut) closed forms."""
+    k = problem.num_machines
+    b = problem.node_weights
+    loads = machine_loads(b, assignment, k)
+    sq_loads = machine_loads(b * b, assignment, k)
+    cut = cut_from_aggregate(aggregate, assignment)
+    c0, ct0 = potentials_closed_form(loads, sq_loads, cut, problem.speeds,
+                                     problem.mu, total_weight)
+    return AggregateState(assignment=assignment, loads=loads,
+                          aggregate=aggregate, c0=c0, ct0=ct0)
+
+
+def _add_moved_windows(problem, aggregate, nodes, col_delta, mask):
+    """Sparse rank-R update: the R moved nodes' incident-edge windows,
+    masked by ``mask``, times their (R, K) column deltas, added in the
+    reference's (r, d) scatter order."""
+    nbrs, ws = node_incident_edges_batched(problem, nodes)    # (R, Dmax)
+    ws = ws * mask[:, None]
+    contrib = ws[:, :, None] * col_delta[:, None, :]          # (R, Dmax, K)
+    return add_windows(aggregate, nbrs.reshape(-1),
+                       contrib.reshape(-1, col_delta.shape[1]))
+
+
 def apply_sweep(problem, agg: AggregateState, picks, dests, will_move,
                 total_weight) -> AggregateState:
     """Apply a §4.5 sweep: machine m moves node picks[m] (owned by m) to
     dests[m] wherever will_move[m] — a rank-K aggregate update, then both
     potentials via the (loads, sq_loads, cut) closed forms.
 
-    Duplicate destinations are summed in machine order, one column add at
-    a time, as the reference's scatter-add sums them — a fixed order with
-    no atomics.  Idle machines' picks may be garbage; their columns are
-    zeroed and their assignment writes dropped.
+    Dense: duplicate destinations are summed in machine order, one column
+    add at a time, as the reference's scatter-add sums them.  Sparse: the
+    K moved nodes' incident-edge windows (O(K·max_degree)).  Idle
+    machines' picks may be garbage; their contributions are zeroed and
+    their assignment writes dropped.
     """
-    costs.require_dense(problem)
     k = problem.num_machines
-    b = problem.node_weights
     dev = problem.device
     dt = agg.aggregate.dtype
     picks = picks.long()
     mask = will_move.to(dt)                                    # (K,)
-    cols = problem.adjacency.index_select(1, picks) * mask[None, :]
-    aggregate = agg.aggregate - cols                           # sources 0..K-1
     kidx = torch.arange(k, device=dev)
     dest_hot = (dests.long()[:, None] == kidx[None, :]).to(dt)  # (K, K)
-    for m in range(k):
-        aggregate = aggregate + cols[:, m:m + 1] * dest_hot[m][None, :]
-    nidx = torch.arange(problem.num_nodes, device=dev)
-    hit = (nidx[None, :] == picks[:, None]) & will_move[:, None]   # (K, N)
-    new_value = torch.sum(hit.to(torch.int32) * dests.to(torch.int32)[:, None],
-                          dim=0).to(torch.int32)
-    assignment = torch.where(hit.any(dim=0), new_value, agg.assignment)
-    loads = machine_loads(b, assignment, k)
-    sq_loads = machine_loads(b * b, assignment, k)
-    cut = cut_from_aggregate(aggregate, assignment)
-    c0, ct0 = potentials_closed_form(loads, sq_loads, cut, problem.speeds,
-                                     problem.mu, total_weight)
-    return AggregateState(assignment=assignment, loads=loads,
-                          aggregate=aggregate, c0=c0, ct0=ct0)
+    if costs.is_sparse(problem):
+        # sources are exactly 0..K-1 (machine m moves an m-owned node)
+        col_delta = dest_hot - (kidx[None, :] == kidx[:, None]).to(dt)
+        aggregate = _add_moved_windows(problem, agg.aggregate, picks,
+                                       col_delta, mask)
+    else:
+        cols = problem.adjacency.index_select(1, picks) * mask[None, :]
+        aggregate = agg.aggregate - cols                       # sources
+        for m in range(k):
+            aggregate = aggregate + cols[:, m:m + 1] * dest_hot[m][None, :]
+    assignment = _set_assignment(agg.assignment, picks, dests, will_move)
+    return _closed_form_state(problem, aggregate, assignment, total_weight)
+
+
+def apply_moves(problem, agg: AggregateState, nodes, dests, will_move,
+                total_weight) -> AggregateState:
+    """Apply up to R simultaneous moves (DESIGN.md §17): node ``nodes[r]``
+    migrates to ``dests[r]`` wherever ``will_move[r]`` — a rank-R
+    aggregate update, then both potentials via the closed forms, as in
+    :func:`apply_sweep`, but with sources read from the carried
+    assignment, so R is free.  Masked slots contribute an exact ``±0.0``
+    and their assignment writes are dropped.
+
+    Sparse problems add the R moved nodes' incident-edge windows
+    (O(R·max_degree·K)); dense ones one (N, R) @ (R, K) product of the
+    gathered adjacency columns against the ``±1`` column deltas.
+    """
+    k = problem.num_machines
+    dt = agg.aggregate.dtype
+    nodes = nodes.long()
+    mask = will_move.to(dt)                                    # (R,)
+    sources = agg.assignment.index_select(0, nodes).long()
+    kidx = torch.arange(k, device=problem.device)
+    col_delta = (dests.long()[:, None] == kidx[None, :]).to(dt) \
+        - (sources[:, None] == kidx[None, :]).to(dt)          # (R, K)
+    if costs.is_sparse(problem):
+        aggregate = _add_moved_windows(problem, agg.aggregate, nodes,
+                                       col_delta, mask)
+    else:
+        cols = problem.adjacency.index_select(1, nodes) * mask[None, :]
+        aggregate = agg.aggregate + cols @ col_delta
+    assignment = _set_assignment(agg.assignment, nodes, dests, will_move)
+    return _closed_form_state(problem, aggregate, assignment, total_weight)
+
+
+def apply_cluster_move(problem, agg: AggregateState, mask, source, dest,
+                       do_move, total_weight) -> AggregateState:
+    """Apply a §7 cluster move: every node in the boolean ``mask`` (all
+    owned by ``source``) migrates jointly to ``dest`` when ``do_move``.
+
+    For every node i, ``delta_i = sum_{j in cluster} c_ij`` moves from
+    column ``source`` to column ``dest``: an O(E) masked sum over each
+    row's edges in edge order on sparse problems, an O(N^2) masked
+    matvec on dense ones.  Potentials come from the closed forms (a
+    cluster move is not unilateral).
+    """
+    k = problem.num_machines
+    dev = problem.device
+    dt = agg.aggregate.dtype
+    if costs.is_sparse(problem):
+        delta = torch.zeros(problem.num_nodes, dtype=dt, device=dev)
+        for e, own in window_slots(problem):
+            hit = own & mask.index_select(
+                0, problem.receivers.index_select(0, e).long())
+            delta = delta + torch.where(
+                hit, problem.edge_weights.index_select(0, e), 0.0)
+    else:
+        delta = problem.adjacency @ mask.to(dt)                # (N,)
+    kidx = torch.arange(k, device=dev)
+    source = torch.as_tensor(source, device=dev)
+    dest = torch.as_tensor(dest, device=dev)
+    col_delta = (kidx == dest).to(dt) - (kidx == source).to(dt)
+    aggregate = agg.aggregate + delta[:, None] * col_delta[None, :]
+    assignment = torch.where(mask, dest.to(torch.int32), agg.assignment)
+    new = _closed_form_state(problem, aggregate, assignment, total_weight)
+    do_move = _flag(do_move, dev)
+    return AggregateState(*(torch.where(do_move, n_, o)
+                            for n_, o in zip(new, agg)))
 
 
 def rebuild_state(problem, assignment, total_weight) -> AggregateState:
-    """A fresh :class:`AggregateState` with closed-form potentials."""
-    costs.require_dense(problem)
+    """A fresh :class:`AggregateState` with closed-form potentials:
+    O(E·K) + O(K) on sparse problems.  The overflow path of the unbounded
+    sweep mode (DESIGN.md §17): cheaper than a mover buffer of O(N)
+    windows and drift-free by construction."""
     assignment = as_assignment(assignment, problem.device)
-    k = problem.num_machines
-    b = problem.node_weights
-    aggregate = costs.problem_aggregate(problem, assignment, k)
-    loads = machine_loads(b, assignment, k)
-    sq_loads = machine_loads(b * b, assignment, k)
-    cut = cut_from_aggregate(aggregate, assignment)
-    c0, ct0 = potentials_closed_form(loads, sq_loads, cut, problem.speeds,
-                                     problem.mu, total_weight)
-    return AggregateState(assignment=assignment, loads=loads,
-                          aggregate=aggregate, c0=c0, ct0=ct0)
+    aggregate = costs.problem_aggregate(problem, assignment,
+                                        problem.num_machines)
+    return _closed_form_state(problem, aggregate, assignment, total_weight)
 
 
 # ---------------------------------------------------------------------------

@@ -15,26 +15,37 @@ Framework 2 (Eq. 6):
   convention is the one of DESIGN.md §8.
 
 Every formula keeps the reference's order of operations, so the same
-inputs round the same way.  Sparse problems come with the second port
-slice; every entry point here raises ``NotImplementedError`` on anything
-but a dense :class:`PartitionProblem`.
+inputs round the same way.
+
+Sparse problems (DESIGN.md §13): every entry point taking a ``problem``
+also takes a :class:`~repro_torch.core.sparse.SparseProblem` — the
+aggregate becomes an O(E) window-by-window sum over the edge list
+(:func:`adjacency_aggregate_sparse`), the cut an O(E) edge sum
+(:func:`total_cut_sparse`), and C_0 the O(K) closed form of
+:func:`potentials_closed_form`.  Anything that is neither kind of
+problem raises ``TypeError``.
 """
 from __future__ import annotations
 
 import torch
 
 from .problem import PartitionProblem, PartitionState, machine_loads
+from .sparse import SparseProblem, window_slots
 
 C_FRAMEWORK = "c"     # Eq. 1
 CT_FRAMEWORK = "ct"   # Eq. 6
 FRAMEWORKS = (C_FRAMEWORK, CT_FRAMEWORK)
 
 
-def require_dense(problem) -> None:
-    if not isinstance(problem, PartitionProblem):
-        raise NotImplementedError(
-            f"{type(problem).__name__}: only dense PartitionProblems are "
-            f"ported so far; sparse problems arrive with port slice 2")
+def is_sparse(problem) -> bool:
+    """True for a :class:`SparseProblem`, False for a dense
+    :class:`PartitionProblem`; ``TypeError`` for anything else."""
+    if isinstance(problem, SparseProblem):
+        return True
+    if isinstance(problem, PartitionProblem):
+        return False
+    raise TypeError(f"expected a PartitionProblem or a SparseProblem; got "
+                    f"{type(problem).__name__}")
 
 
 def row_sum(x: torch.Tensor) -> torch.Tensor:
@@ -59,9 +70,35 @@ def adjacency_aggregate(adjacency: torch.Tensor, assignment: torch.Tensor,
     return adjacency @ one_hot(assignment, num_machines, adjacency.dtype)
 
 
+def adjacency_aggregate_sparse(sp: SparseProblem,
+                               assignment: torch.Tensor) -> torch.Tensor:
+    """The same (N, K) aggregate from the edge list, O(E).
+
+    Each (row, machine) slot sums its row's edges in ascending edge
+    order (receivers ascending), starting from 0 — the order of the
+    reference's ``segment_sum`` over the flat ``sender * K + r[receiver]``
+    slot id, so the values are bitwise equal.  The sum runs one window
+    slot at a time (:func:`~repro_torch.core.sparse.window_slots`): each
+    step adds at most one edge to each row, so the writes never collide
+    and no atomics are needed; masked slots add an exact ``+0.0``.
+    """
+    n, k = sp.num_nodes, sp.num_machines
+    flat = torch.zeros(n * k, dtype=sp.edge_weights.dtype, device=sp.device)
+    base = torch.arange(n, device=sp.device) * k
+    a = assignment.long()
+    for e, own in window_slots(sp):
+        w = torch.where(own, sp.edge_weights.index_select(0, e), 0.0)
+        pos = base + a.index_select(0, sp.receivers.index_select(0, e)
+                                    .long())
+        flat[pos] = flat.index_select(0, pos) + w
+    return flat.view(n, k)
+
+
 def problem_aggregate(problem, assignment: torch.Tensor,
                       num_machines: int) -> torch.Tensor:
-    require_dense(problem)
+    """Build the (N, K) aggregate for either problem representation."""
+    if is_sparse(problem):
+        return adjacency_aggregate_sparse(problem, assignment)
     return adjacency_aggregate(problem.adjacency, assignment, num_machines)
 
 
@@ -178,8 +215,20 @@ def total_cut(adjacency: torch.Tensor, assignment: torch.Tensor
     return 0.5 * torch.sum(adjacency * diff)
 
 
+def total_cut_sparse(sp: SparseProblem,
+                     assignment: torch.Tensor) -> torch.Tensor:
+    """Unordered cut from the edge list — O(E).  Each undirected edge is
+    stored in both directions, so the directed crossings are halved;
+    padded edges (weight 0) add exactly 0."""
+    a = assignment.long()
+    crossing = a[sp.senders.long()] != a[sp.receivers.long()]
+    return 0.5 * torch.sum(torch.where(crossing, sp.edge_weights, 0.0))
+
+
 def problem_cut(problem, assignment: torch.Tensor) -> torch.Tensor:
-    require_dense(problem)
+    """Unordered cut for either problem representation."""
+    if is_sparse(problem):
+        return total_cut_sparse(problem, assignment)
     return total_cut(problem.adjacency, assignment)
 
 
@@ -196,10 +245,22 @@ def potentials_closed_form(loads, sq_loads, cut, speeds, mu, total_weight):
 
 
 def global_cost_c0(problem, assignment: torch.Tensor) -> torch.Tensor:
-    """C_0(r) = sum_i C_i(r)  (Thm. 3.1 potential, social welfare)."""
-    require_dense(problem)
+    """C_0(r) = sum_i C_i(r)  (Thm. 3.1 potential, social welfare).
+
+    Sparse problems evaluate the O(K) closed form over (loads, sq_loads,
+    cut) instead of summing N node costs — the same value up to f32
+    reassociation (DESIGN.md §13.3)."""
+    sparse = is_sparse(problem)
+    b = problem.node_weights
+    if sparse:
+        k = problem.num_machines
+        loads = machine_loads(b, assignment, k)
+        sq_loads = machine_loads(b * b, assignment, k)
+        cut = total_cut_sparse(problem, assignment)
+        return potentials_closed_form(loads, sq_loads, cut, problem.speeds,
+                                      problem.mu, torch.sum(b))[0]
     state = PartitionState(assignment,
-                           machine_loads(problem.node_weights, assignment,
+                           machine_loads(b, assignment,
                                          problem.num_machines))
     return torch.sum(node_costs(problem, state, C_FRAMEWORK))
 

@@ -1,5 +1,5 @@
 """Iterative partition refinement (paper §4.2, Fig. 1/2), PyTorch port of
-``repro.core.refine`` (dense problems).
+``repro.core.refine``.
 
 Machines take sequential round-robin turns.  On its turn a machine finds
 the most dissatisfied node it owns (Eq. 4) and transfers it to that
@@ -16,6 +16,14 @@ Entry points:
                               and both global potentials.
   * ``refine_simultaneous`` — the paper-§4.5 mode, one move per machine
                               per sweep.
+  * ``refine_sweeps``       — multi-move probabilistic sweeps
+                              (DESIGN.md §17), with the §4.5 mode as its
+                              degenerate setting.
+
+Every entry point takes a dense ``PartitionProblem`` or a
+:class:`~repro_torch.core.sparse.SparseProblem`; the per-turn math is the
+same (costs assemble from the carried (N, K) aggregate), only the
+aggregate's build and updates walk the edge list instead.
 
 Two cost paths (DESIGN.md §10): **incremental** (default) carries an
 :class:`~repro_torch.core.aggregate.AggregateState`; **recompute** (also
@@ -71,6 +79,11 @@ from .problem import PartitionState, make_state
 # Dissatisfaction below this threshold counts as "satisfied" — guards float
 # round-off from keeping the loop alive on a plateau.
 DEFAULT_TOL = 1e-6
+
+# Mover-buffer slots for the unbounded sweep apply (DESIGN.md §17): sets
+# up to this size update through apply_moves' incident windows; larger
+# sets fall back to the O(E) rebuild.
+_UNBOUNDED_APPLY_CAP = 4096
 
 # Turns between the host's reads of the convergence flag.
 _SYNC_EVERY = 64
@@ -219,7 +232,7 @@ def refine(problem, assignment, framework: str = costs.C_FRAMEWORK,
     the per-node migration price (DESIGN.md §11).
     """
     _no_recorder(recorder)
-    costs.require_dense(problem)
+    costs.is_sparse(problem)        # TypeError for anything else
     k = problem.num_machines
     dev = problem.device
     theta = _resolve_theta(theta, problem)
@@ -282,7 +295,7 @@ def refine_traced(problem, assignment, framework: str = costs.C_FRAMEWORK,
     converged), and ``verify_every`` resyncs at every boundary.
     """
     _no_recorder(recorder)
-    costs.require_dense(problem)
+    costs.is_sparse(problem)        # TypeError for anything else
     k = problem.num_machines
     dev = problem.device
     theta = _resolve_theta(theta, problem)
@@ -342,46 +355,228 @@ def refine_simultaneous(problem, assignment,
     rank-K update and both potentials come from the O(K) closed forms.
 
     Returns ``(RefineResult, (c0s, ct0s, active))`` with per-sweep
-    potentials; ``num_moves`` counts actual transfers.
+    potentials; ``num_moves`` counts actual transfers.  This is
+    :func:`refine_sweeps`' degenerate setting (``moves_per_machine=1``,
+    ``move_prob=1``, ``epsilon=0``), run by the same sweep body, so the
+    two agree bitwise by construction (DESIGN.md §17).
     """
-    _no_recorder(recorder)
-    costs.require_dense(problem)
+    return refine_sweeps(problem, assignment, framework,
+                         max_sweeps=max_sweeps, tol=tol, theta=theta,
+                         recorder=recorder)
+
+
+class SweepCandidateFn(Protocol):
+    """Fused sweep-election convention (DESIGN.md §17.4): the same 9
+    positional arguments as :class:`DissatFn`, returning the per-MACHINE
+    election ``(gains (K,), picks (K,), dests (K,))``: machine m's best
+    net dissatisfaction among its owned nodes, that node (lowest index on
+    ties) and its lowest-index arg-best machine.  Factory:
+    :func:`repro_torch.kernels.ops.make_edge_sweep_fn`.  Consumed by
+    :func:`refine_sweeps` with ``moves_per_machine=1``.
+    """
+
+    def __call__(self, aggregate, assignment, node_weights, loads, speeds,
+                 mu, framework: str, total_weight,
+                 theta=None) -> tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor]:
+        """Returns ``(gains (K,), picks (K,), dests (K,))``."""
+        ...
+
+
+def _top_m(masked: torch.Tensor, m: int):
+    """Each row's M largest entries, lowest index first among equals (the
+    order of ``jax.lax.top_k``; ``torch.topk`` does not promise it)."""
+    values, index = torch.sort(masked, dim=1, descending=True, stable=True)
+    return values[:, :m], index[:, :m]
+
+
+def _adaptive_coin(agg, problem, best, cand, move_prob: float, generator):
+    """The unbounded mode's per-candidate coin (arXiv:cs/0506098): rate
+    ``move_prob · min(1, gap_i / W_dest)``, ``gap_i`` being half the
+    source→destination normalized-load imbalance and ``W_dest`` the total
+    candidate weight aimed at the destination, so each destination's
+    expected inflow stays below its deficit.  Returns ``(coin, cand)``
+    with candidates of non-positive gap dropped: their rate is 0 on this
+    and every later sweep, so they must not keep the run alive."""
     k = problem.num_machines
+    dt = problem.node_weights.dtype
+    best = best.long()
+    norm = agg.loads / problem.speeds                            # (K,)
+    gap = 0.5 * (norm.index_select(0, agg.assignment.long())
+                 - norm.index_select(0, best)) \
+        * problem.speeds.index_select(0, best)                   # (N,)
+    # per-destination candidate weight as a one-hot product: a fixed
+    # summation order, where index_add_ would sum with atomics
+    onehot = (best[:, None] == torch.arange(k, device=best.device)).to(dt)
+    w_dest = torch.where(cand, problem.node_weights, 0.0) @ onehot  # (K,)
+    frac = gap / torch.clamp(w_dest.index_select(0, best), min=1e-30)
+    rate = move_prob * torch.clamp(frac, 0.0, 1.0)
+    coin = torch.rand(rate.shape, generator=generator, device=rate.device,
+                      dtype=rate.dtype) < rate
+    return coin, cand & (frac > 0)
+
+
+def refine_sweeps(problem, assignment, framework: str = costs.C_FRAMEWORK,
+                  max_sweeps: int = 256, tol: float = DEFAULT_TOL,
+                  theta=None, moves_per_machine: int | None = 1,
+                  move_prob: float = 1.0, epsilon: float = 0.0,
+                  generator: torch.Generator | None = None,
+                  dissat_fn: DissatFn | None = None,
+                  sweep_fn: SweepCandidateFn | None = None, recorder=None):
+    """Multi-move probabilistic sweeps (DESIGN.md §17): the §4.5
+    simultaneous mode generalized so convergence is O(sweeps), not
+    O(moves).
+
+    Per sweep, candidates are elected by ``moves_per_machine``:
+
+      * ``1`` (default) — each machine's most dissatisfied node, exactly
+        :func:`refine_simultaneous`'s election;
+      * ``M > 1`` — each machine's top-M owned nodes, applied as one
+        rank-K·M update (:func:`~repro_torch.core.aggregate.apply_moves`);
+      * ``None`` — unbounded: every node whose net dissatisfaction clears
+        the threshold.  Up to 4096 accepted movers (lowest indices
+        first) go through ``apply_moves``' incident windows; a larger
+        set falls back to the O(E·K) rebuild
+        (:func:`~repro_torch.core.aggregate.rebuild_state`).
+
+    ``move_prob < 1`` thins the candidates with independent coins drawn
+    from ``generator`` (a ``torch.Generator`` on the problem's device,
+    required then): a flat ``move_prob`` rate in the elected modes, and
+    in the unbounded mode per-candidate rates from the cs/0506098
+    expected-drop bound (:func:`_adaptive_coin`).  ``move_prob >= 1``
+    draws nothing: ``accept`` is ``cand``.  ``epsilon`` raises the
+    acceptance floor to ``tol + ε·|Φ|/N`` on the carried potential — the
+    ε-equilibrium threshold of arXiv:1305.3354.  The run has converged
+    when no candidate clears the threshold; the loop then stops, and the
+    per-sweep outputs are padded as the reference's masked sweeps leave
+    them (the last potentials, ``active`` False).
+
+    ``dissat_fn`` is the 9-argument seam (default: the reference's
+    assembled cost matrix and reduction, as ``refine_simultaneous`` uses
+    it); ``sweep_fn`` (:class:`SweepCandidateFn`) fuses the election
+    into a kernel (``moves_per_machine=1`` only).
+
+    Host syncs: each sweep reads one flag (with the accepted count in the
+    unbounded mode, which chooses the mover buffer or the rebuild), and
+    each multi-window update reads its deepest row group
+    (:func:`~repro_torch.core.aggregate.add_windows`).
+
+    Returns ``(RefineResult, (c0s, ct0s, active))`` like
+    :func:`refine_simultaneous`.
+    """
+    if move_prob < 1.0 and generator is None:
+        raise ValueError("refine_sweeps(move_prob < 1) needs a "
+                         "torch.Generator `generator` for the per-sweep "
+                         "acceptance coins")
+    if sweep_fn is not None and moves_per_machine != 1:
+        raise ValueError("sweep_fn fuses the one-move-per-machine election "
+                         "(moves_per_machine=1); use dissat_fn for the "
+                         "other modes")
+    if sweep_fn is not None and dissat_fn is not None:
+        raise ValueError("pass sweep_fn or dissat_fn, not both (sweep_fn "
+                         "subsumes the per-node reduction)")
+    _no_recorder(recorder)
+    costs.is_sparse(problem)        # TypeError for anything else
+    k = problem.num_machines
+    n = problem.num_nodes
     dev = problem.device
     theta = _resolve_theta(theta, problem)
+    if dissat_fn is None:
+        dissat_fn = _assembled_dissat
+    elected = sweep_fn is not None or moves_per_machine == 1
+    unbounded = sweep_fn is None and moves_per_machine is None
     agg = agg_mod.init_aggregate_state(problem, assignment)
     total_b = torch.sum(problem.node_weights)
-    done = torch.zeros((), dtype=torch.bool, device=dev)
     moves = _zero_i32(dev)
     kidx = torch.arange(k, device=dev)
     c0s, ct0s, actives = [], [], []
+    converged = False
     for _ in range(max_sweeps):
-        dissat, best = _assembled_dissat(agg.aggregate, agg.assignment,
-                                   problem.node_weights, agg.loads,
-                                   problem.speeds, problem.mu, framework,
-                                   total_b, theta)
-        # per machine: the most dissatisfied owned node (first maximum)
-        owned = agg.assignment.long()[None, :] == kidx[:, None]   # (K, N)
-        masked = torch.where(owned, dissat[None, :], -float("inf"))
-        pick = torch.argmax(masked, dim=1)                        # (K,)
-        gains = torch.max(masked, dim=1).values
-        will_move = gains > tol
-        any_move = torch.any(will_move) & ~done
-        new = agg_mod.apply_sweep(problem, agg, pick,
-                                  best.index_select(0, pick), will_move,
-                                  total_b)
-        agg = agg_mod.AggregateState(*(torch.where(any_move, n_, o)
-                                       for n_, o in zip(new, agg)))
-        moves = moves + torch.where(
-            any_move, torch.sum(will_move.to(torch.int32)), 0).to(
-                torch.int32)
-        done = done | ~any_move
+        if epsilon:
+            pot = agg.c0 if framework == costs.C_FRAMEWORK else agg.ct0
+            thresh = tol + epsilon * torch.abs(pot) / n
+        else:
+            thresh = tol
+        args = (agg.aggregate, agg.assignment, problem.node_weights,
+                agg.loads, problem.speeds, problem.mu, framework, total_b,
+                theta)
+        if sweep_fn is not None:
+            gains, pick, dest = sweep_fn(*args)
+        else:
+            dissat, best = dissat_fn(*args)
+            if not unbounded:
+                owned = agg.assignment.long()[None, :] == kidx[:, None]
+                masked = torch.where(owned, dissat[None, :],
+                                     -float("inf"))            # (K, N)
+                if elected:
+                    # the most dissatisfied owned node (first maximum)
+                    pick = torch.argmax(masked, dim=1)
+                    gains = torch.max(masked, dim=1).values
+                else:
+                    gains, pick = _top_m(masked, moves_per_machine)
+                    gains, pick = gains.reshape(-1), pick.reshape(-1)
+                dest = best.index_select(0, pick.long())
+        cand = (dissat if unbounded else gains) > thresh
+        if move_prob < 1.0:
+            if unbounded:
+                coin, cand = _adaptive_coin(agg, problem, best, cand,
+                                            move_prob, generator)
+            else:
+                coin = torch.rand(cand.shape, generator=generator,
+                                  device=dev) < move_prob
+            accept = cand & coin
+        else:
+            accept = cand
+        any_cand = torch.any(cand)
+        n_acc = torch.sum(accept.to(torch.int32))
+        if unbounded:
+            # host sync: the flag and the accepted count in one read
+            flag, count = torch.stack([any_cand.to(torch.int32),
+                                       n_acc]).tolist()
+        else:
+            flag = bool(any_cand)                   # host sync
+        if not flag:
+            converged = True
+            break
+        if elected:
+            agg = agg_mod.apply_sweep(problem, agg, pick, dest, accept,
+                                      total_b)
+        elif not unbounded:
+            agg = agg_mod.apply_moves(problem, agg, pick, dest, accept,
+                                      total_b)
+        elif count <= min(_UNBOUNDED_APPLY_CAP, n):
+            # the buffer's first `count` slots hold every mover; the rest
+            # would be masked fill adding exact zeros, so they are left out
+            idx = _mover_buffer(accept, count)
+            agg = agg_mod.apply_moves(problem, agg, idx,
+                                      best.index_select(0, idx),
+                                      torch.ones_like(idx, dtype=torch.bool),
+                                      total_b)
+        else:
+            agg = agg_mod.rebuild_state(
+                problem, torch.where(accept, best, agg.assignment), total_b)
+        moves = moves + n_acc
         c0s.append(agg.c0)
         ct0s.append(agg.ct0)
-        actives.append(any_move)
-    active = torch.stack(actives)
+        actives.append(True)
+    pad = max_sweeps - len(actives)
+    c0s += [agg.c0] * pad
+    ct0s += [agg.ct0] * pad
+    active = torch.tensor(actives + [False] * pad, dtype=torch.bool,
+                          device=dev)
     result = RefineResult(
         assignment=agg.assignment, loads=agg.loads, num_moves=moves,
-        num_turns=torch.sum(active.to(torch.int32)), converged=done,
+        num_turns=torch.sum(active.to(torch.int32)),
+        converged=torch.tensor(converged, device=dev),
         aggregate_drift=torch.zeros((), device=dev))
     return result, (torch.stack(c0s), torch.stack(ct0s), active)
+
+
+def _mover_buffer(accept: torch.Tensor, size: int) -> torch.Tensor:
+    """The first ``size`` accepted node ids, lowest first, compacted by a
+    cumulative sum (no ``nonzero``, which syncs)."""
+    slot = torch.cumsum(accept.to(torch.int64), 0) - 1
+    slot = torch.where(accept & (slot < size), slot, size)
+    buf = torch.zeros(size + 1, dtype=torch.int64, device=accept.device)
+    buf[slot] = torch.arange(accept.shape[0], device=accept.device)
+    return buf[:size]

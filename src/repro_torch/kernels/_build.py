@@ -4,8 +4,9 @@ Each source is compiled by ``nvcc`` into its own shared library with a
 plain C interface and loaded with ``ctypes``; nothing includes PyTorch's
 headers, so a build takes seconds.  Libraries land in ``build/`` beside
 this file (ignored by git), named by a hash of the source and the flags,
-so an edited source is rebuilt and an unchanged one is reused.  All
-sources are compiled at once, one ``nvcc`` each, started together.
+so an edited source is rebuilt and an unchanged one is reused (the hash
+covers the shared headers ``csrc/*.cuh`` too).  All sources are compiled
+at once, one ``nvcc`` each, started together.
 """
 from __future__ import annotations
 
@@ -40,6 +41,15 @@ SIGNATURES = {
         # rows, cols, k, framework, stream
         "cost_matrix": [_F] * 9 + [_I, _I, _I, _I, _F],
     },
+    "edge_block": {
+        "edge_block_rows": [],
+        # row_start, receivers, weights, assignment, b_rows, theta, loads,
+        # speeds, mu, total_b, dissat, best, n, e, k, framework, stream
+        "dissat_from_edges": [_F] * 12 + [_I, _I, _I, _I, _F],
+        # the same ten inputs, tile_gain, tile_node, tile_dest, n, e, k,
+        # framework, stream
+        "sweep_candidates_from_edges": [_F] * 13 + [_I, _I, _I, _I, _F],
+    },
 }
 
 _libraries: dict[str, ctypes.CDLL] = {}
@@ -59,7 +69,8 @@ def nvcc() -> str:
 
 
 def _target(source: Path) -> Path:
-    digest = hashlib.sha256(source.read_bytes()
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(source.read_bytes() + headers
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{source.stem}-{digest[:16]}.so"
 

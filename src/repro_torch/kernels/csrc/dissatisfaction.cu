@@ -9,39 +9,15 @@
 //
 // Every entry point launches on the caller's stream, allocates nothing,
 // and returns cudaGetLastError() so the wrapper can raise on a refused
-// launch.
-//
-// Cost assembly shared by both kernels (framework 0 = Eq. 1 "c",
-// 1 = Eq. 6 "ct"), per row i and machine k, in the reference's op order:
-//   degree   = A[i,0] + A[i,1] + ... + A[i,K-1]        (k ascending)
-//   others_k = L_k - b_i * own_k
-//   cut_k    = (0.5 * mu) * (degree - A[i,k])
-//   c:   cost_k = (b_i * inv_w_k) * others_k + cut_k
-//   ct:  cost_k = (((b*b)*iw)*iw + (((2b)*iw)*iw)*others_k) - ((2b)*iw)*B + cut_k
+// launch.  The cost assembly and the per-row reduction both kernels end
+// in live in reduce_dissat.cuh, shared with edge_block.cu.
 
-#include <cuda_runtime.h>
-#include <math.h>
+#include "reduce_dissat.cuh"
 
 namespace {
 
-constexpr int kMaxK = 128;
-
-__device__ __forceinline__ float assemble_cost(float a_k, float degree,
-                                               float b, float own,
-                                               float load_k, float inv_w_k,
-                                               float half_mu, float total_b,
-                                               int framework) {
-  float others = load_k - b * own;
-  float cut = half_mu * (degree - a_k);
-  if (framework == 0) {
-    return (b * inv_w_k) * others + cut;
-  }
-  float two_b = 2.0f * b;
-  float t1 = ((b * b) * inv_w_k) * inv_w_k;
-  float t2 = ((two_b * inv_w_k) * inv_w_k) * others;
-  float t3 = (two_b * inv_w_k) * total_b;
-  return ((t1 + t2) - t3) + cut;
-}
+using repro::assemble_cost;
+using repro::kMaxK;
 
 // ---------------------------------------------------------------------------
 // Kernel 1: (dissat, best) straight from the carried (rows, K) aggregate.
@@ -69,46 +45,17 @@ __global__ void dissat_from_aggregate_kernel(
     int framework) {
   __shared__ float s_loads[kMaxK];
   __shared__ float s_inv_w[kMaxK];
-  for (int t = threadIdx.x; t < k; t += blockDim.x) {
-    s_loads[t] = loads[t];
-    s_inv_w[t] = 1.0f / speeds[t];
-  }
+  repro::load_machine_table(loads, speeds, k, s_loads, s_inv_w);
   __syncthreads();
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= rows) return;
-  const float half_mu = 0.5f * mu_p[0];
-  const float total_b = total_b_p[0];
-  const float* a = agg + static_cast<size_t>(i) * k;
-  const float b = b_rows[i];
-  const int r = r_rows[i];
-
-  float degree = a[0];
-  for (int kk = 1; kk < k; ++kk) degree = degree + a[kk];
-
-  float best_val = 0.0f;
-  int best_idx = k;
-  float current = 0.0f;
-  bool saw_nan = false;
-  for (int kk = 0; kk < k; ++kk) {
-    const float own = (kk == r) ? 1.0f : 0.0f;
-    const float cost = assemble_cost(a[kk], degree, b, own, s_loads[kk],
-                                     s_inv_w[kk], half_mu, total_b,
-                                     framework);
-    if (isnan(cost)) saw_nan = true;
-    if (kk == 0 || cost < best_val) {
-      best_val = cost;
-      best_idx = kk;
-    }
-    if (kk == r) current = cost;
-  }
-  if (saw_nan) {
-    best_val = nanf("");
-    best_idx = k;
-  }
-  float d = current - best_val;
+  const repro::RowDissat row = repro::reduce_dissat_row(
+      agg + static_cast<size_t>(i) * k, 1, k, b_rows[i], r_rows[i], s_loads,
+      s_inv_w, 0.5f * mu_p[0], total_b_p[0], framework);
+  float d = row.dissat;
   if (theta != nullptr) d = d - theta[i];
   dissat[i] = d;
-  best[i] = best_idx;
+  best[i] = row.best;
 }
 
 // ---------------------------------------------------------------------------
@@ -145,10 +92,7 @@ __global__ void cost_matrix_kernel(
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  for (int t = threadIdx.x; t < k; t += blockDim.x) {
-    s_loads[t] = loads[t];
-    s_inv_w[t] = 1.0f / speeds[t];
-  }
+  repro::load_machine_table(loads, speeds, k, s_loads, s_inv_w);
   float* part = s_part + (warp * 32 + lane) * k;
   for (int kk = 0; kk < k; ++kk) part[kk] = 0.0f;
   __syncthreads();

@@ -3,7 +3,9 @@
 Each adapter dispatches on where its tensors lie: CUDA tensors go to the
 hand-written kernel (which raises on what it does not take — there is no
 fallback), CPU tensors to the kernel's plain PyTorch twin.  The launch
-counts live in :data:`repro_torch.kernels.dissatisfaction.launches`.
+counts live in :data:`repro_torch.kernels.dissatisfaction.launches`
+(kernels 1–2) and :data:`repro_torch.kernels.edge_block.launches`
+(kernels 4–5).
 """
 from __future__ import annotations
 
@@ -15,9 +17,13 @@ from . import ref
 from .dissatisfaction import (cost_matrix_cuda, cost_matrix_plain,
                               dissatisfaction_from_aggregate_cuda,
                               dissatisfaction_from_aggregate_plain)
+from .edge_block import (dissatisfaction_from_edges_cuda,
+                         dissatisfaction_from_edges_plain,
+                         sweep_candidates_from_edges_cuda,
+                         sweep_candidates_from_edges_plain)
 
 if TYPE_CHECKING:
-    from ..core.refine import DissatFn
+    from ..core.refine import DissatFn, SweepCandidateFn
 
 
 def _on_card(t: torch.Tensor) -> bool:
@@ -75,4 +81,43 @@ def make_aggregate_dissat_fn() -> DissatFn:
         return dissatisfaction_from_aggregate(
             aggregate, assignment, node_weights, loads, speeds, mu,
             total_weight, framework, theta=theta)
+    return fn
+
+
+def make_edge_dissat_fn(problem) -> DissatFn:
+    """The ``dissat_fn`` convention on the edge-block kernel (kernel 4,
+    DESIGN.md §13.3): the per-sweep reduction is recomputed straight from
+    ``problem``'s edge list and the carried ``aggregate`` argument is
+    ignored — the drift-free sparse oracle, O(E) per call.  ``problem``
+    is a :class:`~repro_torch.core.sparse.SparseProblem`."""
+    fn_edges = (dissatisfaction_from_edges_cuda
+                if _on_card(problem.edge_weights)
+                else dissatisfaction_from_edges_plain)
+
+    def fn(aggregate, assignment, node_weights, loads, speeds, mu,
+           framework, total_weight, theta=None):
+        del aggregate   # recomputed from the edges
+        return fn_edges(problem, assignment, node_weights, loads, speeds,
+                        mu, framework, theta=theta,
+                        total_weight=total_weight)
+    return fn
+
+
+def make_edge_sweep_fn(problem) -> SweepCandidateFn:
+    """The :class:`~repro_torch.core.refine.SweepCandidateFn` convention
+    on the edge-block sweep kernel (kernel 5, DESIGN.md §17.4): one pass
+    over the edges per sweep yields the whole per-machine election
+    ``(gains, picks, dests)``; the carried ``aggregate`` is ignored.
+    For ``refine_sweeps(..., sweep_fn=...)`` with
+    ``moves_per_machine=1``."""
+    fn_edges = (sweep_candidates_from_edges_cuda
+                if _on_card(problem.edge_weights)
+                else sweep_candidates_from_edges_plain)
+
+    def fn(aggregate, assignment, node_weights, loads, speeds, mu,
+           framework, total_weight, theta=None):
+        del aggregate   # recomputed from the edges
+        return fn_edges(problem, assignment, node_weights, loads, speeds,
+                        mu, framework, theta=theta,
+                        total_weight=total_weight)
     return fn

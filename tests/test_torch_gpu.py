@@ -106,3 +106,64 @@ def test_kernels_refuse_what_they_do_not_take(card):
                            "c")
     with pytest.raises(ValueError, match="contiguous"):
         D.cost_matrix_cuda(adj_t.T, r_t, b_t, loads_t, speeds_t, 8.0, "c")
+
+
+def _sparse_on(card, n, k, seed):
+    from repro_torch.core.sparse import make_sparse_problem
+    from repro_torch.graphs.generators import (random_degree_graph_edges,
+                                               random_weights_edges)
+    s, r = random_degree_graph_edges(n, seed=seed)
+    b, w = random_weights_edges(n, s, seed=seed + 1, mean=5.0)
+    rng = np.random.default_rng(seed + 2)
+    sp = make_sparse_problem(s, r, w, b, rng.uniform(0.5, 2.0, k), mu=8.0,
+                             device=card)
+    r0 = torch.as_tensor(rng.integers(0, k, n).astype(np.int32), device=card)
+    return sp, r0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("framework", ["c", "ct"])
+@pytest.mark.parametrize("n,k", [(1003, 8), (300, 128), (5000, 3)])
+def test_edge_kernels_bitwise_twins(card, n, k, framework):
+    """Kernel 4 == its twin and == kernel 1 on the window-summed aggregate,
+    bitwise; kernel 5 == its twin and == the first-maximum election from
+    kernel 4's output, bitwise; with and without theta."""
+    from repro_torch.core.costs import adjacency_aggregate_sparse
+    from repro_torch.core.problem import machine_loads
+    from repro_torch.kernels import edge_block as E
+    sp, r = _sparse_on(card, n, k, seed=n + k)
+    b = sp.node_weights
+    loads = machine_loads(b, r, k)
+    agg = adjacency_aggregate_sparse(sp, r)
+    for theta in (None, torch.full((n,), 0.5, device=card)):
+        args = (sp, r, b, loads, sp.speeds, sp.mu, framework)
+        got = E.dissatisfaction_from_edges_cuda(*args, theta=theta)
+        twin = E.dissatisfaction_from_edges_plain(*args, theta=theta)
+        one = D.dissatisfaction_from_aggregate_cuda(
+            agg, r, b, loads, sp.speeds, sp.mu, framework, theta=theta)
+        torch.cuda.synchronize()
+        for want in (twin, one):
+            assert torch.equal(got[0], want[0])
+            assert torch.equal(got[1], want[1])
+        sweep = E.sweep_candidates_from_edges_cuda(*args, theta=theta)
+        twin5 = E.sweep_candidates_from_edges_plain(*args, theta=theta)
+        elected = E.elect(got[0], got[1], r, k)
+        torch.cuda.synchronize()
+        for want in (twin5, elected):
+            for a, c in zip(sweep, want):
+                assert torch.equal(a, c)
+
+
+@pytest.mark.gpu
+def test_edge_kernels_refuse_what_they_do_not_take(card):
+    from repro_torch.core.problem import machine_loads
+    from repro_torch.kernels import edge_block as E
+    sp, r = _sparse_on(card, 200, 4, seed=3)
+    loads = machine_loads(sp.node_weights, r, 4)
+    with pytest.raises(ValueError, match="int32"):
+        E.dissatisfaction_from_edges_cuda(sp, r.long(), sp.node_weights,
+                                          loads, sp.speeds, sp.mu, "c")
+    with pytest.raises(ValueError, match="K"):
+        E.sweep_candidates_from_edges_cuda(
+            sp, r, sp.node_weights, torch.ones(D.MAX_K + 1, device=card),
+            torch.ones(D.MAX_K + 1, device=card), sp.mu, "c")

@@ -225,9 +225,10 @@ def test_potentials_match_reference(pair):
 
 
 def test_refine_rejects_what_is_not_ported(pair):
-    """Telemetry and sparse problems belong to later slices of the port."""
+    """Telemetry belongs to a later slice of the port; an object that is
+    neither kind of problem is refused with a TypeError."""
     _, port, r0 = pair
     with pytest.raises(NotImplementedError, match="telemetry"):
         refine(port, r0, "c", recorder=object())
-    with pytest.raises(NotImplementedError, match="slice 2"):
+    with pytest.raises(TypeError, match="PartitionProblem or a SparseProblem"):
         refine(object(), r0, "c")
