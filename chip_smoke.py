@@ -1,8 +1,9 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: builds the CUDA kernels,
 holds each against its plain PyTorch twin, drives the dense partition game
-end to end at N=16384, K=16 and the sparse sweep runtime at the reference's
-million-node instance (N=10^6, E=9,002,624, K=8), times every kernel, and
-checks the results.
+end to end at N=16384, K=16, the sparse sweep runtime at the reference's
+million-node instance (N=10^6, E=9,002,624, K=8) and the batched fleets
+(32 dense problems of N=4096, K=16; 4 sparse ones of N=65536, K=8), times
+every kernel, and checks the results.
 
   python3 chip_smoke.py          # needs one CUDA card and nvcc
 
@@ -35,7 +36,25 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      busy share); (b) 256 degenerate sweeps on kernel 5 against the same
      sweeps on kernel 4; (c) sparse ``refine`` (kernel 1 over the carried
      aggregate) for 2048 turns with ``verify_every``;
-  9. sparse times — kernels 4 and 5 at N=10^6, K=8.
+  9. sparse times — kernels 4 and 5 at N=10^6, K=8;
+ 10. fleet set-up and kernel 3 — 32 dense problems of N=4096, K=16 with
+     ``benchmarks/batch_study.py``'s per-element draws, stacked on the
+     card; kernel 3 (dissatisfaction over a (B, rows, K) stack) bitwise
+     against its twin and against kernel 1 on every element, at the fleet
+     shape, a ragged (3, 1003, 8) and (2, 300, 128), both frameworks, θ
+     absent and 0.5; its times;
+ 11. the dense fleet — ``run_sweep(mode="refine", use_kernel=True)``
+     (one batched loop, kernel 3 per turn) to 32 checked equilibria;
+     elements 0, 13 and 31 run alone through ``refine`` equal the fleet
+     bitwise; kernel 3 launched once per batched turn and kernel 1 never;
+     element-turns per second batched against looped; a profiled window
+     of 256 batched turns;
+ 12. the sparse fleet — 4 weightings of ``random_degree_graph_edges(65536,
+     seed=0)``: kernel 3 bitwise against its twin and kernel 1 on the
+     fleet's initial sparse carry; 2048 batched ``refine`` turns, each
+     element bitwise its looped run; then the same cases under ``mode="multimove"``
+     (unbounded, move_prob 0.5, ε=1e-3, 24 sweeps), each bitwise a lone
+     ``refine_sweeps`` with the generator derived for its index.
 
 Each path's launch counts are set to 0 just before it and read just after.
 The line before the last two is the kernels' JSON record; then the card's
@@ -71,6 +90,20 @@ SWEEP_CAP = 24            # sweeps allowed to reach the ε-equilibrium
 DEGENERATE_SWEEPS = 256   # run (b): kernel 5 against kernel 4
 SPARSE_TURNS = 2048       # run (c): sparse refine, kernel 1 per turn
 SPARSE_VERIFY = 512
+
+# the fleets: benchmarks/batch_study.py's per-element draws at the repo's
+# dense width
+FLEET_B = 32
+FLEET_N = 4096
+FLEET_K = 16
+FLEET_MAX_TURNS = 10_000
+FLEET_LOOPED = (0, 13, 31)       # elements also run alone through refine
+FLEET_PROFILE_TURNS = 256
+SPARSE_FLEET_B = 4
+SPARSE_FLEET_N = 65536
+SPARSE_FLEET_K = 8
+SPARSE_FLEET_TURNS = 2048
+SPARSE_FLEET_SWEEPS = 24
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s and f32 FLOP/s
 # outside the tensor cores
@@ -327,8 +360,8 @@ def phase_main(D, ops, problem):
         f"{len(rec_moves)} turns equal the incremental path's")
     launches = dict(D.launches)
     log(f"  launches over the main path: {launches}")
-    for name, count in launches.items():
-        if count <= 0:
+    for name in ("dissat_from_aggregate", "cost_matrix"):
+        if launches[name] <= 0:
             fail(f"kernel {name} was not launched on the main path")
     return {"r": r, "r0": r0, "launches": launches, "moves": moves,
             "turns": turns,
@@ -764,6 +797,324 @@ def phase_sparse_times(E, sp, r):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 10-12: fleets
+# ---------------------------------------------------------------------------
+
+def fleet_cases(device="cuda"):
+    """The dense fleet: element s is ``random_degree_graph(4096,
+    seed=500+s)`` with ``random_weights(seed=1500+s, mean=5)``, mu then
+    speeds drawn from ``default_rng(2500+s)`` (batch_study.py's draws),
+    framework c, no theta, r0 from ``default_rng(3500+s)``.  Each element
+    is built on the host and moved to the card before the next, so no host
+    copy of the fleet exists."""
+    from repro_torch import sweeps
+    from repro_torch.core.problem import make_problem
+    from repro_torch.graphs.generators import (random_degree_graph,
+                                               random_weights)
+    cases = []
+    for s in range(FLEET_B):
+        adj = random_degree_graph(FLEET_N, seed=500 + s, dmin=3, dmax=6)
+        node_w, edge_w = random_weights(adj, seed=1500 + s, mean=5.0)
+        del adj
+        rng = np.random.default_rng(2500 + s)
+        mu = float(rng.choice([4.0, 8.0, 16.0]))
+        sp = rng.uniform(0.5, 2.0, size=FLEET_K)
+        problem = make_problem(edge_w, node_w, sp / sp.sum(), mu=mu,
+                               normalize_speeds=False, device=device)
+        del edge_w
+        r0 = np.random.default_rng(3500 + s).integers(0, FLEET_K, FLEET_N)
+        cases.append(sweeps.SweepCase(problem=problem, assignment=r0,
+                                      framework="c", label=f"element {s}"))
+    return cases
+
+
+def check_kernel3(D, agg, r, b, loads, speeds, mu, total_b, label):
+    """Kernel 3 vs its twin and vs kernel 1 on every element: best equal,
+    dissat bitwise; returns the largest difference seen (0.0 if bitwise)."""
+    bsz, rows, k = agg.shape
+    err = 0.0
+    theta = torch.full((bsz, rows), 0.5, device=agg.device)
+    for fw in ("c", "ct"):
+        for th in (None, theta):
+            got = D.dissatisfaction_from_aggregate_batched_cuda(
+                agg, r, b, loads, speeds, mu, fw, theta=th,
+                total_weight=total_b)
+            twin = D.dissatisfaction_from_aggregate_batched_plain(
+                agg, r, b, loads, speeds, mu, fw, theta=th,
+                total_weight=total_b)
+            ones = [D.dissatisfaction_from_aggregate_cuda(
+                agg[e], r[e], b[e], loads[e], speeds[e], mu[e], fw,
+                theta=None if th is None else th[e],
+                total_weight=total_b[e]) for e in range(bsz)]
+            torch.cuda.synchronize()
+            tag = f"({label}, {fw}, theta={th is not None})"
+            wants = {"twin": twin,
+                     "kernel 1": (torch.stack([o[0] for o in ones]),
+                                  torch.stack([o[1] for o in ones]))}
+            for name, want in wants.items():
+                diff = float((got[0] - want[0]).abs().max())
+                err = max(err, diff)
+                if not torch.equal(got[1], want[1]):
+                    fail(f"kernel 3 best != {name} {tag}")
+                if not torch.equal(got[0], want[0]):
+                    fail(f"kernel 3 dissat not bitwise equal to {name} "
+                         f"{tag}: max |diff| {diff}")
+    log(f"  kernel 3 {label}: (B, rows, K)={tuple(agg.shape)}: best equal, "
+        f"dissat bitwise equal to its twin and to kernel 1 on every element "
+        f"(c, ct; theta absent and 0.5)")
+    return err
+
+
+def _random_stack(rng, bsz, rows, k, device="cuda"):
+    """A random (B, rows, K) operand set, each element with its own loads,
+    speeds, mu and B."""
+    from repro_torch.core.problem import machine_loads
+    agg = torch.as_tensor(rng.uniform(0, 50, (bsz, rows, k))
+                          .astype(np.float32), device=device)
+    r = torch.as_tensor(rng.integers(0, k, (bsz, rows)).astype(np.int32),
+                        device=device)
+    b = torch.as_tensor(rng.uniform(0.1, 10, (bsz, rows)).astype(np.float32),
+                        device=device)
+    sp = rng.uniform(0.5, 2.0, (bsz, k))
+    speeds = torch.as_tensor((sp / sp.sum(axis=1, keepdims=True))
+                             .astype(np.float32), device=device)
+    loads = torch.stack([machine_loads(b[e], r[e], k) for e in range(bsz)])
+    mu = torch.as_tensor(rng.choice([4.0, 8.0, 16.0], bsz)
+                         .astype(np.float32), device=device)
+    total_b = torch.stack([torch.sum(x) for x in b])
+    return agg, r, b, loads, speeds, mu, total_b
+
+
+def _fleet_operands(problems, r0):
+    """Kernel 3's operands at the fleet's start, each element's carry built
+    by the unbatched ``init_aggregate_state`` (as refine_batched does)."""
+    from repro_torch.core import aggregate as agg_mod
+    from repro_torch.core.batch import stack_pytrees, unstack_pytree
+    carry = stack_pytrees([agg_mod.init_aggregate_state(
+        unstack_pytree(problems, e), r0[e]) for e in range(r0.shape[0])])
+    total_b = torch.stack([torch.sum(x) for x in problems.node_weights])
+    return (carry.aggregate, carry.assignment, problems.node_weights,
+            carry.loads, problems.speeds, problems.mu, total_b)
+
+
+def phase_fleet_kernels(D, problems, r0, card):
+    args = _fleet_operands(problems, r0)
+    err = check_kernel3(D, *args, "fleet shape")
+    rng = np.random.default_rng(SEED + 10)
+    for bsz, rows, k in ((3, 1003, 8), (2, 300, 128)):
+        err = max(err, check_kernel3(D, *_random_stack(rng, bsz, rows, k),
+                                     "ragged"))
+    agg, r, b, loads, speeds, mu, total_b = args
+    bsz, n, k = agg.shape
+
+    def k3():
+        D.dissatisfaction_from_aggregate_batched_cuda(
+            agg, r, b, loads, speeds, mu, "c", total_weight=total_b)
+
+    def p3():
+        D.dissatisfaction_from_aggregate_batched_plain(
+            agg, r, b, loads, speeds, mu, "c", total_weight=total_b)
+
+    t = {"k3": [], "p3": []}
+    for order in (("k3", "p3"), ("p3", "k3")):
+        for name in order:
+            t[name].append(cuda_ms({"k3": k3, "p3": p3}[name],
+                                   200 if name == "k3" else 20))
+    ms = {name: float(np.mean(v)) for name, v in t.items()}
+    dev_us = kernel_device_us(
+        {"dissat_from_aggregate_batched": (k3, 50)})[
+            "dissat_from_aggregate_batched"]
+    f4, i4 = 4, 4
+    # reads A, r, b, loads, speeds, mu, B once; writes dissat, best
+    byt = f4 * bsz * n * k + i4 * bsz * n + f4 * bsz * n \
+        + 2 * f4 * bsz * k + 2 * f4 * bsz + f4 * bsz * n + i4 * bsz * n
+    flops = bsz * n * k * 12
+    t_bytes = 1e3 * byt / PEAK_BYTES_S
+    t_ops = 1e3 * flops / PEAK_F32_FLOPS
+    rec = {"name": "dissat_from_aggregate_batched", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/dissatisfaction.cu",
+           "replaces": "src/repro/kernels/dissatisfaction.py:417",
+           "ms": ms["k3"], "plain_ms": ms["p3"],
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "library_ms": None, "max_abs_err": err}
+    log(f"  dissat_from_aggregate_batched at (B, N, K)=({bsz}, {n}, {k}): "
+        f"kernel {ms['k3']:.5f} ms per call "
+        f"({'not measured' if dev_us is None else f'{dev_us:.2f} us'} on "
+        f"the device), twin {ms['p3']:.5f} ms, bound "
+        f"{rec['bound_ms']:.5f} ms ({rec['bound_by']}, {byt / 1e6:.2f} MB), "
+        f"library null (no single PyTorch call) [{card}]")
+    return rec
+
+
+def phase_dense_fleet(D, cases, problems, r0, card):
+    from repro_torch import sweeps
+    from repro_torch.core import costs
+    from repro_torch.core.batch import refine_batched
+    from repro_torch.core.problem import make_state
+    from repro_torch.core.refine import _SYNC_EVERY, DEFAULT_TOL, refine
+
+    spec = sweeps.make_spec(cases, mode="refine", max_turns=FLEET_MAX_TURNS,
+                            use_kernel=True)
+    D.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = sweeps.run_sweep(spec)
+    turns = res.turns
+    wall = time.perf_counter() - t0
+    launches = dict(D.launches)
+    batched_turns = min(FLEET_MAX_TURNS,
+                        _SYNC_EVERY * -(-int(turns.max()) // _SYNC_EVERY))
+    log(f"  run_sweep(refine, use_kernel=True), B={FLEET_B}: "
+        f"{int(res.moves.sum())} moves, element turns {int(turns.min())}-"
+        f"{int(turns.max())} (sum {int(turns.sum())}), converged "
+        f"{int(res.converged.sum())}/{FLEET_B}, {wall:.3f} s, "
+        f"{1e3 * wall / batched_turns:.4f} ms per batched turn (stacking "
+        f"and the carry build included), {turns.sum() / wall:.1f} "
+        f"element-turns/s [{card}]")
+    log(f"  launches over the fleet run: {launches} (batched turns "
+        f"{batched_turns})")
+    if not res.converged.all():
+        fail("a fleet element did not converge")
+    if launches["dissat_from_aggregate_batched"] != batched_turns:
+        fail(f"kernel 3 launched {launches['dissat_from_aggregate_batched']}"
+             f" times in {batched_turns} batched turns")
+    if launches["dissat_from_aggregate"] != 0:
+        fail("kernel 1 was launched by the batched run")
+    worst = 0.0
+    for case, r in zip(cases, res.results):
+        cost = costs.cost_matrix(case.problem,
+                                 make_state(case.problem, r.assignment), "c")
+        dis, _ = costs.dissatisfaction_from_cost(cost, r.assignment)
+        slack = DEFAULT_TOL + 4 * float(torch.finfo(torch.float32).eps) \
+            * float(cost.abs().max())
+        w = float(dis.max())
+        if not w <= slack:
+            fail(f"fleet {case.label} is not an equilibrium: max "
+                 f"dissatisfaction {w} > {slack}")
+        worst = max(worst, w)
+    log(f"  Nash check on all {FLEET_B} elements from a fresh rebuild: max "
+        f"dissatisfaction {worst:.3e}")
+
+    looped = []
+    for e in FLEET_LOOPED:
+        case = cases[e]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one = refine(case.problem, case.assignment, "c",
+                     max_turns=FLEET_MAX_TURNS)
+        n_turns = int(one.num_turns)
+        w = time.perf_counter() - t0
+        got = res.results[e]
+        same = (torch.equal(one.assignment, got.assignment)
+                and torch.equal(one.loads, got.loads)
+                and int(one.num_moves) == int(got.num_moves)
+                and n_turns == int(got.num_turns))
+        log(f"  element {e} alone through refine (kernel 1): "
+            f"{int(one.num_moves)} moves in {n_turns} turns, {w:.3f} s, "
+            f"{n_turns / w:.1f} element-turns/s; bitwise equal to the "
+            f"fleet: {same}")
+        if not same:
+            fail(f"fleet element {e} differs from its looped run")
+        looped.append(n_turns / w)
+
+    _, pwall, dev_s, dev_launches, top = busy_share(
+        lambda: refine_batched(problems, r0, "c",
+                               max_turns=FLEET_PROFILE_TURNS))
+    log(f"  profiled {FLEET_PROFILE_TURNS} batched turns: wall "
+        f"{1e3 * pwall / FLEET_PROFILE_TURNS:.4f} ms/turn, device "
+        f"{1e3 * dev_s / FLEET_PROFILE_TURNS:.4f} ms/turn, busy share "
+        f"{dev_s / pwall:.4f}, {dev_launches / FLEET_PROFILE_TURNS:.1f} "
+        f"device launches per batched turn")
+    for ev in top:
+        log(f"    {ev.key[:60]:60s} {ev.count:6d} x "
+            f"{ev.self_device_time_total / max(ev.count, 1):8.2f} us")
+    return {"launches": launches, "batched_turns": batched_turns,
+            "ms_per_batched_turn": 1e3 * wall / batched_turns,
+            "element_turns_per_s": float(turns.sum() / wall),
+            "looped_element_turns_per_s": looped}
+
+
+def phase_sparse_fleet(D, card):
+    from repro_torch import sweeps
+    from repro_torch.core.batch import stack_problems
+    from repro_torch.core.refine import refine, refine_sweeps
+    from repro_torch.core.sparse import make_sparse_problem
+    from repro_torch.graphs.generators import (random_degree_graph_edges,
+                                               random_weights_edges)
+    from repro_torch.sweeps.runtime import case_generator
+    n, k = SPARSE_FLEET_N, SPARSE_FLEET_K
+    snd, rcv = random_degree_graph_edges(n, seed=0)
+    cases = []
+    for s in range(SPARSE_FLEET_B):
+        b, w = random_weights_edges(n, snd, seed=1 + s, mean=5.0)
+        sp = make_sparse_problem(snd, rcv, w, b, np.ones(k) / k, mu=MU,
+                                 device="cuda")
+        r0 = np.random.default_rng(20 + s).integers(0, k, n)
+        cases.append(sweeps.SweepCase(problem=sp, assignment=r0,
+                                      framework="c", label=f"weights {s}"))
+    log(f"  sparse fleet: B={SPARSE_FLEET_B}, N={n}, K={k}, "
+        f"E={cases[0].problem.num_edges}, max_degree "
+        f"{cases[0].problem.max_degree}")
+    stacked = stack_problems([c.problem for c in cases])
+    r0 = torch.stack([torch.as_tensor(c.assignment.astype(np.int32),
+                                      device="cuda") for c in cases])
+    err = check_kernel3(D, *_fleet_operands(stacked, r0), "sparse fleet")
+    del stacked, r0
+    D.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = sweeps.run_sweep(sweeps.make_spec(cases, mode="refine",
+                                            max_turns=SPARSE_FLEET_TURNS,
+                                            use_kernel=True))
+    moves = res.moves
+    wall = time.perf_counter() - t0
+    launches = dict(D.launches)
+    log(f"  run_sweep(refine) for {SPARSE_FLEET_TURNS} turns: moves "
+        f"{moves.tolist()}, {1e3 * wall / SPARSE_FLEET_TURNS:.4f} ms per "
+        f"batched turn; launches {launches} [{card}]")
+    if launches["dissat_from_aggregate_batched"] <= 0:
+        fail("kernel 3 was not launched by the sparse fleet")
+    t_loop = 0.0
+    for e, case in enumerate(cases):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one = refine(case.problem, case.assignment, "c",
+                     max_turns=SPARSE_FLEET_TURNS)
+        same = all(torch.equal(a, c) for a, c in zip(one, res.results[e]))
+        t_loop += time.perf_counter() - t0
+        if not same:
+            fail(f"sparse fleet element {e} differs from its looped run")
+    log(f"  every element bitwise equal to its looped refine "
+        f"({1e3 * t_loop / (SPARSE_FLEET_B * SPARSE_FLEET_TURNS):.4f} ms "
+        f"per looped turn)")
+
+    cfg = dict(moves_per_machine=None, move_prob=0.5, epsilon=1e-3)
+    t0 = time.perf_counter()
+    res_m = sweeps.run_sweep(sweeps.make_spec(
+        cases, mode="multimove", max_turns=SPARSE_FLEET_SWEEPS, seed=0,
+        **cfg))
+    sweeps_done = res_m.turns
+    wall_m = time.perf_counter() - t0
+    log(f"  run_sweep(multimove, unbounded, move_prob 0.5, eps 1e-3): "
+        f"sweeps {sweeps_done.tolist()}, moves {res_m.moves.tolist()}, "
+        f"converged {res_m.converged.tolist()}, {wall_m:.3f} s")
+    for e, case in enumerate(cases):
+        one, trace = refine_sweeps(
+            case.problem, case.assignment, "c",
+            max_sweeps=SPARSE_FLEET_SWEEPS,
+            generator=case_generator(0, e, "cuda"), **cfg)
+        same = (all(torch.equal(a, c) for a, c in zip(one, res_m.results[e]))
+                and all(torch.equal(a, c)
+                        for a, c in zip(trace, res_m.traces[e])))
+        if not same:
+            fail(f"multimove case {e} differs from its lone refine_sweeps")
+    log("  every multimove case bitwise equal to a lone refine_sweeps with "
+        "its derived generator")
+    return err
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke run needs one GPU")
@@ -844,6 +1195,31 @@ def main() -> int:
         rec["launches"] = sparse_run["launches"][rec["name"]]
         rec["max_abs_err"] = err45
     kernels += edge_kernels
+    del sp
+    torch.cuda.empty_cache()
+
+    log(f"== phase 10: fleet set-up (B={FLEET_B}, N={FLEET_N}, K={FLEET_K})"
+        f" and kernel 3 vs its twin and kernel 1")
+    from repro_torch.core.batch import stack_problems
+    t0 = time.perf_counter()
+    cases = fleet_cases()
+    problems = stack_problems([c.problem for c in cases])
+    r0 = torch.stack([torch.as_tensor(c.assignment.astype(np.int32),
+                                      device="cuda") for c in cases])
+    torch.cuda.synchronize()
+    log(f"  built in {time.perf_counter() - t0:.1f} s; mu "
+        f"{problems.mu.tolist()}")
+    k3 = phase_fleet_kernels(D, problems, r0, card)
+
+    log("== phase 11: dense fleet (run_sweep refine, kernel 3 per turn)")
+    fleet = phase_dense_fleet(D, cases, problems, r0, card)
+    k3["launches"] = fleet["launches"]["dissat_from_aggregate_batched"]
+    kernels.insert(2, k3)
+    del cases, problems, r0
+    torch.cuda.empty_cache()
+
+    log("== phase 12: sparse fleet and multimove")
+    k3["max_abs_err"] = max(k3["max_abs_err"], phase_sparse_fleet(D, card))
     log(f"  total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

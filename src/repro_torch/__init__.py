@@ -5,6 +5,7 @@ module names and public signatures so each counterpart is easy to find,
 and imports nothing of it.  Entry points run on ``cuda`` unless the
 caller passes ``device="cpu"``.  Ported so far: the partition game on
 dense and sparse (edge-list) problems with its refinement entry points,
-``refine_sweeps`` and cluster moves (``core``), four refinement kernels
+``refine_sweeps``, cluster moves and batched fleets (``core``), the
+``SweepSpec → run_sweep`` runtime (``sweeps``), five refinement kernels
 (``kernels``), and the graph generators (``graphs``, copied).
 """

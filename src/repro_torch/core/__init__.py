@@ -1,2 +1,3 @@
 """The partition game: dense and sparse problems, costs, aggregate carry,
-refinement (turns, sweeps, cluster moves) and initial partitioning."""
+refinement (turns, sweeps, cluster moves), batched fleets and initial
+partitioning."""

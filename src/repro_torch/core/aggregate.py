@@ -47,18 +47,19 @@ class AggregateState(NamedTuple):
     ct0: torch.Tensor          # () float32 — Ct_0(assignment)
 
 
-def _index(x, device) -> torch.Tensor:
-    """A (1,) int64 index tensor; device tensors stay on the device and a
-    Python int is filled in place, so neither copies from the host."""
+def _index(x, device, lead=()) -> torch.Tensor:
+    """A (*lead, 1) int64 index tensor (one index per fleet element, or
+    (1,)); device tensors stay on the device and a Python int is filled in
+    place, so neither copies from the host."""
     if isinstance(x, torch.Tensor):
-        return x.to(device=device, dtype=torch.int64).reshape(1)
-    return torch.full((1,), int(x), dtype=torch.int64, device=device)
+        return x.to(device=device, dtype=torch.int64).reshape(*lead, 1)
+    return torch.full((*lead, 1), int(x), dtype=torch.int64, device=device)
 
 
-def _flag(x, device) -> torch.Tensor:
+def _flag(x, device, shape=()) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
-        return x.to(device=device, dtype=torch.bool).reshape(())
-    return torch.full((), bool(x), dtype=torch.bool, device=device)
+        return x.to(device=device, dtype=torch.bool).reshape(shape)
+    return torch.full(shape, bool(x), dtype=torch.bool, device=device)
 
 
 def init_aggregate_state(problem, assignment) -> AggregateState:
@@ -92,13 +93,15 @@ def node_cost_rows(agg_row, b_node, source, loads, speeds, mu, total_weight):
 def potential_deltas(agg_row, b_node, source, dest, loads, speeds, mu,
                      total_weight):
     """(ΔC_0, ΔCt_0) of moving one node from ``source`` to ``dest`` (each a
-    (1,) index tensor) via the exact-potential identities — O(K)."""
+    (1,) index tensor) via the exact-potential identities — O(K).  A
+    fleet passes (B, 1) indices, (B, 1, K) rows and (B,) scalars and gets
+    (B,) deltas."""
     c_row, ct_row = node_cost_rows(agg_row, b_node, source, loads, speeds,
                                    mu, total_weight)
-    d, s = dest[:, None], source[:, None]
-    dc0 = 2.0 * (c_row.gather(1, d) - c_row.gather(1, s))
-    dct0 = ct_row.gather(1, d) - ct_row.gather(1, s)
-    return dc0.reshape(()), dct0.reshape(())
+    d, s = dest[..., None], source[..., None]
+    dc0 = 2.0 * (c_row.gather(-1, d) - c_row.gather(-1, s))
+    dct0 = ct_row.gather(-1, d) - ct_row.gather(-1, s)
+    return dc0.reshape(dest.shape[:-1]), dct0.reshape(dest.shape[:-1])
 
 
 def add_windows(aggregate, targets, contrib, rounds: int | None = None):
@@ -144,33 +147,50 @@ def apply_move(problem, agg: AggregateState, node, source, dest, do_move,
     added; its real edges have distinct receivers, so each row gets at
     most one nonzero contribution and one round of :func:`add_windows`
     applies it without reading anything back.
+
+    A fleet (DESIGN.md §12) passes a stacked problem, a carry with a
+    leading B axis (aggregate (B, N, K)), (B, 1) ``node``/``dest``, (B,)
+    ``do_move``/``total_weight``, and element b moves ``node[b]``: every
+    op is the unbatched one with a batch axis, so each element is bitwise
+    its own move.  Dense, that gathers row ``node[b]`` of element b's
+    adjacency — nothing of size B·N·N besides the stack itself.  Sparse,
+    the aggregate is viewed as (B·N, K) with element b's receivers offset
+    by b·N, so one round of :func:`add_windows` applies all B windows:
+    windows of different elements never share a row (padding and foreign
+    slots carry weight 0 and go to the scratch row).
     """
-    dev = problem.device
-    k = agg.loads.shape[0]
+    *lead, n, k = agg.aggregate.shape
+    dev = agg.aggregate.device
     # a NaN-poisoned row reports best machine K and never moves; clamp so
     # the discarded gathers stay in range (the reference's gathers clamp)
-    node, source, dest = (_index(node, dev), _index(source, dev),
-                          _index(dest, dev).clamp(max=k - 1))
-    do_move = _flag(do_move, dev)
-    b_node = problem.node_weights.index_select(0, node)        # (1,)
-    agg_row = agg.aggregate.index_select(0, node)               # (1, K)
+    node, source, dest = (_index(node, dev, lead), _index(source, dev, lead),
+                          _index(dest, dev, lead).clamp(max=k - 1))
+    do_move = _flag(do_move, dev, lead)
+    b_node = problem.node_weights.gather(-1, node)              # (..., 1)
+    agg_row = agg.aggregate.gather(-2, node[..., None].expand(*lead, 1, k))
     dc0, dct0 = potential_deltas(agg_row, b_node, source, dest, agg.loads,
                                  problem.speeds, problem.mu, total_weight)
     dt = agg.aggregate.dtype
     kidx = torch.arange(k, device=dev)
-    col_delta = (kidx == dest).to(dt) - (kidx == source).to(dt)
-    col_delta = torch.where(do_move, col_delta, 0.0)
+    col_delta = (kidx == dest).to(dt) - (kidx == source).to(dt)  # (..., K)
+    col_delta = torch.where(do_move[..., None], col_delta, 0.0)
     if costs.is_sparse(problem):
-        nbrs, w = node_incident_edges_batched(problem, node)   # (1, Dmax)
-        aggregate = add_windows(agg.aggregate, nbrs[0],
-                                w[0][:, None] * col_delta[None, :], rounds=1)
+        nbrs, w = node_incident_edges_batched(problem, node)  # (..., 1, D)
+        rows = nbrs[..., 0, :]
+        if lead:
+            rows = rows + n * torch.arange(lead[0], device=dev)[:, None]
+        contrib = w[..., 0, :, None] * col_delta[..., None, :]  # (..., D, K)
+        aggregate = add_windows(agg.aggregate.reshape(-1, k),
+                                rows.reshape(-1), contrib.reshape(-1, k),
+                                rounds=1).reshape(agg.aggregate.shape)
     else:
-        col = problem.adjacency.index_select(0, node)[0]   # symmetric
-        aggregate = agg.aggregate + col[:, None] * col_delta[None, :]
+        col = problem.adjacency.gather(
+            -2, node[..., None].expand(*lead, 1, n))[..., 0, :]  # symmetric
+        aggregate = agg.aggregate + col[..., :, None] * col_delta[..., None, :]
     loads = agg.loads + b_node * col_delta
-    moved_to = torch.where(do_move, dest.to(torch.int32),
-                           agg.assignment.index_select(0, node))
-    assignment = agg.assignment.scatter(0, node, moved_to)
+    moved_to = torch.where(do_move[..., None], dest.to(torch.int32),
+                           agg.assignment.gather(-1, node))
+    assignment = agg.assignment.scatter(-1, node, moved_to)
     return AggregateState(
         assignment=assignment, loads=loads, aggregate=aggregate,
         c0=torch.where(do_move, agg.c0 + dc0, agg.c0),

@@ -60,7 +60,17 @@ def row_sum(x: torch.Tensor) -> torch.Tensor:
 def one_hot(assignment: torch.Tensor, num_machines: int,
             dtype=torch.float32) -> torch.Tensor:
     kidx = torch.arange(num_machines, device=assignment.device)
-    return (assignment.long()[:, None] == kidx).to(dtype)
+    return (assignment.long()[..., None] == kidx).to(dtype)
+
+
+def per_element(x, trailing: int):
+    """A per-element scalar of a stacked fleet, a (B,) tensor, shaped to
+    broadcast against (B, ..., rows, K) blocks by ``trailing`` singleton
+    axes.  A 0-d tensor or a Python number passes through unchanged, so
+    one formula serves a single problem and a stack (DESIGN.md §12)."""
+    if isinstance(x, torch.Tensor) and x.ndim:
+        return x.reshape(x.shape + (1,) * trailing)
+    return x
 
 
 def adjacency_aggregate(adjacency: torch.Tensor, assignment: torch.Tensor,
@@ -125,27 +135,32 @@ def cost_matrix_from_aggregate(aggregate: torch.Tensor,
     ``row_assignment`` gives the rows' OWN machines; ``total_weight`` is
     the global weight sum B, required by the Ct framework (defaults to
     ``sum(node_weights)``, correct only when the rows are the full graph).
+
+    A fleet (DESIGN.md §12) passes every operand with a leading batch
+    axis — aggregate (B, rows, K), rows (B, rows), loads and speeds
+    (B, K), ``mu`` and ``total_weight`` (B,) — and gets (B, rows, K):
+    the same elementwise ops, so each element is bitwise its own call.
     """
     b = node_weights
-    k = loads.shape[0]
+    k = loads.shape[-1]
     degree = row_sum(aggregate)                                # = sum_j c_ij
-    cut_term = 0.5 * mu * (degree - aggregate)
+    cut_term = 0.5 * per_element(mu, 2) * (degree - aggregate)
     own = one_hot(row_assignment, k, b.dtype)                  # (rows, K)
     # node i's weight is subtracted only on its CURRENT machine — every
     # other machine's load already excludes i.
-    others = loads[None, :] - b[:, None] * own
+    others = loads[..., None, :] - b[..., :, None] * own
     if framework == C_FRAMEWORK:
-        load_term = (b[:, None] / speeds[None, :]) * others
+        load_term = (b[..., :, None] / speeds[..., None, :]) * others
         return load_term + cut_term
     if framework == CT_FRAMEWORK:
         if total_weight is None:
             total_weight = torch.sum(b)
-        inv_w = 1.0 / speeds[None, :]
+        inv_w = 1.0 / speeds[..., None, :]
         inv_w2 = inv_w * inv_w
-        bcol = b[:, None]
+        bcol = b[..., :, None]
         load_term = (bcol * bcol) * inv_w2 \
             + 2.0 * bcol * inv_w2 * others \
-            - 2.0 * bcol * inv_w * total_weight
+            - 2.0 * bcol * inv_w * per_element(total_weight, 2)
         return load_term + cut_term
     raise ValueError(f"unknown framework {framework!r}")
 
@@ -181,13 +196,15 @@ def dissatisfaction_from_cost(cost: torch.Tensor,
     ``theta`` (DESIGN.md §11); this is the one place it is subtracted
     outside the kernels.  ``current`` (a gather) and ``best`` (a min) read
     the same materialized tensor, so a node on its best machine gets
-    exactly 0.
+    exactly 0.  A fleet's (B, rows, K) block works the same over its
+    last axis.
     """
-    current = cost.gather(1, row_assignment.long()[:, None])[:, 0]
-    best = torch.min(cost, dim=1).values
-    kidx = torch.arange(cost.shape[1], device=cost.device)
-    best_machine = torch.where(cost <= best[:, None], kidx,
-                               cost.shape[1]).min(dim=1).values
+    current = cost.gather(-1, row_assignment.long()[..., None])[..., 0]
+    best = torch.min(cost, dim=-1).values
+    k = cost.shape[-1]
+    kidx = torch.arange(k, device=cost.device)
+    best_machine = torch.where(cost <= best[..., None], kidx,
+                               k).min(dim=-1).values
     dissat = current - best
     if theta is not None:
         dissat = dissat - theta

@@ -154,22 +154,23 @@ def _zero_i32(device) -> torch.Tensor:
 
 def _pick(dissat, assignment, machine: int, tol: float, active):
     """The machine's most dissatisfied owned node (first maximum) and
-    whether it moves."""
+    whether it moves.  ``node`` keeps the reduced axis, (1,) — or (B, 1)
+    for a fleet's (B, N) ``dissat``, one pick per element."""
     owned = assignment == machine
     masked = torch.where(owned, dissat, -float("inf"))
-    node = torch.argmax(masked).reshape(1)
-    gain = masked.index_select(0, node)[0]
+    node = torch.argmax(masked, dim=-1, keepdim=True)
+    gain = masked.gather(-1, node)[..., 0]
     do_move = (gain > tol) & active
     return node, gain, do_move
 
 
 def _result(do_move, node, machine: int, dest, gain, c0, ct0) -> TurnResult:
-    node32 = node[0].to(torch.int32)
+    node32 = node[..., 0].to(torch.int32)
     return TurnResult(
         moved=do_move,
         node=torch.where(do_move, node32, -1),
         source=torch.where(do_move, node32.new_full((), machine), -1),
-        dest=torch.where(do_move, dest[0].to(torch.int32), -1),
+        dest=torch.where(do_move, dest[..., 0].to(torch.int32), -1),
         gain=torch.where(do_move, gain, 0.0),
         c0=c0, ct0=ct0)
 
@@ -203,12 +204,15 @@ def _turn_incremental(problem, agg: agg_mod.AggregateState, machine: int,
                       framework: str, tol: float, total_b, dissat_fn,
                       theta=None, active=True):
     """One machine turn, incremental path: O(NK) costs from the carried
-    aggregate, O(N) rank-1 move (DESIGN.md §10)."""
+    aggregate, O(N) rank-1 move (DESIGN.md §10).  A fleet's carry (a
+    (B, N, K) aggregate, every field with a leading B axis, see
+    :mod:`repro_torch.core.batch`) takes the same turn in every element
+    at once."""
     dissat, best = dissat_fn(agg.aggregate, agg.assignment,
                              problem.node_weights, agg.loads, problem.speeds,
                              problem.mu, framework, total_b, theta)
     node, gain, do_move = _pick(dissat, agg.assignment, machine, tol, active)
-    dest = best.index_select(0, node)
+    dest = best.gather(-1, node)
     new_agg = agg_mod.apply_move(problem, agg, node, machine, dest, do_move,
                                  total_b)
     return new_agg, _result(do_move, node, machine, dest, gain, new_agg.c0,

@@ -254,9 +254,10 @@ def dense_from_sparse(sp: SparseProblem) -> PartitionProblem:
 def window_starts(sp: SparseProblem, nodes: torch.Tensor) -> torch.Tensor:
     """First edge index of each node's ``max_degree`` window, clamped so
     the window stays inside the arrays (the clamp of the reference's
-    ``dynamic_slice``).  Returns int64."""
-    last = sp.num_edges - sp.max_degree
-    return sp.row_start.index_select(0, nodes.long()).long().clamp(max=last)
+    ``dynamic_slice``).  Returns int64.  A fleet's stacked problem takes
+    (B, R) nodes, one row of picks per element."""
+    last = sp.senders.shape[-1] - sp.max_degree
+    return sp.row_start.gather(-1, nodes.long()).long().clamp(max=last)
 
 
 def window_slots(sp: SparseProblem):
@@ -304,11 +305,16 @@ def node_incident_edges_batched(sp: SparseProblem, nodes: torch.Tensor
                                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """:func:`node_incident_edges` for (R,) nodes: (R, max_degree)
     neighbor and weight windows (the reference ``vmap``s the one-node
-    form)."""
+    form).  A fleet's stacked problem takes (B, R) nodes and gives
+    (B, R, max_degree) windows, each from its own element's edges."""
     nodes = nodes.long()
-    idx = window_starts(sp, nodes)[:, None] + torch.arange(
+    idx = window_starts(sp, nodes)[..., None] + torch.arange(
         sp.max_degree, device=sp.device)
-    s = sp.senders[idx]
-    r = sp.receivers[idx]
-    w = sp.edge_weights[idx]
-    return r, torch.where(s == nodes[:, None], w, 0.0)
+    flat = idx.reshape(idx.shape[:-2] + (-1,))
+
+    def take(x):
+        return x.gather(-1, flat).reshape(idx.shape)
+
+    s = take(sp.senders)
+    return take(sp.receivers), torch.where(s == nodes[..., None],
+                                           take(sp.edge_weights), 0.0)

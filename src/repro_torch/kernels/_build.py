@@ -37,6 +37,9 @@ SIGNATURES = {
         # agg, r_rows, b_rows, theta, loads, speeds, mu, total_b,
         # dissat, best, rows, k, framework, stream
         "dissat_from_aggregate": [_F] * 10 + [_I, _I, _I, _F],
+        # the same ten pointers over a (B, rows, K) stack, then batch,
+        # rows, k, framework, stream
+        "dissat_from_aggregate_batched": [_F] * 10 + [_I, _I, _I, _I, _F],
         # adj, r_cols, r_rows, b_rows, loads, speeds, mu, total_b, out,
         # rows, cols, k, framework, stream
         "cost_matrix": [_F] * 9 + [_I, _I, _I, _I, _F],

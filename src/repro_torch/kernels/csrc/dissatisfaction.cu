@@ -9,8 +9,8 @@
 //
 // Every entry point launches on the caller's stream, allocates nothing,
 // and returns cudaGetLastError() so the wrapper can raise on a refused
-// launch.  The cost assembly and the per-row reduction both kernels end
-// in live in reduce_dissat.cuh, shared with edge_block.cu.
+// launch.  The cost assembly and the per-row reduction that kernels 1
+// and 3 end in live in reduce_dissat.cuh, shared with edge_block.cu.
 
 #include "reduce_dissat.cuh"
 
@@ -56,6 +56,48 @@ __global__ void dissat_from_aggregate_kernel(
   if (theta != nullptr) d = d - theta[i];
   dissat[i] = d;
   best[i] = row.best;
+}
+
+// ---------------------------------------------------------------------------
+// Kernel 3: kernel 1 over a fleet, a (B, rows, K) aggregate stack.
+//
+// Replaces the TPU kernel dissatisfaction_from_aggregate_batched_pallas
+// (repro/kernels/dissatisfaction.py, body _dissat_kernel_batched), which
+// the batched refinement reaches on every turn.  Bound on an H100: bytes,
+// and below that launch latency -- at B=32, N=4096, K=16 it reads 8.39 MB
+// of aggregate plus 1.05 MB of (r, b) and writes 1.05 MB, about 3.1 us at
+// 3.35 TB/s.  Design: the grid is (ceil(rows/128), B), one thread per row;
+// block (x, e) reads element e's slab at agg + (e*rows + i)*K and element
+// e's own loads, speeds, mu and B, and ends in kernel 1's epilogue
+// (reduce_dissat.cuh), so every element is bitwise kernel 1 on that
+// element by construction.  No row of one element is ever read by a block
+// of another.
+// ---------------------------------------------------------------------------
+
+__global__ void dissat_from_aggregate_batched_kernel(
+    const float* __restrict__ agg, const int* __restrict__ r_rows,
+    const float* __restrict__ b_rows, const float* __restrict__ theta,
+    const float* __restrict__ loads, const float* __restrict__ speeds,
+    const float* __restrict__ mu_p, const float* __restrict__ total_b_p,
+    float* __restrict__ dissat, int* __restrict__ best, int rows, int k,
+    int framework) {
+  __shared__ float s_loads[kMaxK];
+  __shared__ float s_inv_w[kMaxK];
+  const int e = blockIdx.y;
+  repro::load_machine_table(loads + static_cast<size_t>(e) * k,
+                            speeds + static_cast<size_t>(e) * k, k, s_loads,
+                            s_inv_w);
+  __syncthreads();
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= rows) return;
+  const size_t row = static_cast<size_t>(e) * rows + i;
+  const repro::RowDissat out = repro::reduce_dissat_row(
+      agg + row * k, 1, k, b_rows[row], r_rows[row], s_loads, s_inv_w,
+      0.5f * mu_p[e], total_b_p[e], framework);
+  float d = out.dissat;
+  if (theta != nullptr) d = d - theta[row];
+  dissat[row] = d;
+  best[row] = out.best;
 }
 
 // ---------------------------------------------------------------------------
@@ -167,6 +209,24 @@ int dissat_from_aggregate(const float* agg, const int* r_rows,
   const int blocks = (rows + threads - 1) / threads;
   dissat_from_aggregate_kernel<<<blocks, threads, 0,
                                  static_cast<cudaStream_t>(stream)>>>(
+      agg, r_rows, b_rows, theta, loads, speeds, mu, total_b, dissat, best,
+      rows, k, framework);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int dissat_from_aggregate_batched(const float* agg, const int* r_rows,
+                                  const float* b_rows, const float* theta,
+                                  const float* loads, const float* speeds,
+                                  const float* mu, const float* total_b,
+                                  float* dissat, int* best, int batch,
+                                  int rows, int k, int framework,
+                                  void* stream) {
+  if (k < 1 || k > kMaxK || batch < 1 || batch > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int threads = 128;
+  const dim3 blocks((rows + threads - 1) / threads, batch);
+  dissat_from_aggregate_batched_kernel<<<blocks, threads, 0,
+                                         static_cast<cudaStream_t>(stream)>>>(
       agg, r_rows, b_rows, theta, loads, speeds, mu, total_b, dissat, best,
       rows, k, framework);
   return static_cast<int>(cudaGetLastError());

@@ -4,7 +4,7 @@ Each adapter dispatches on where its tensors lie: CUDA tensors go to the
 hand-written kernel (which raises on what it does not take — there is no
 fallback), CPU tensors to the kernel's plain PyTorch twin.  The launch
 counts live in :data:`repro_torch.kernels.dissatisfaction.launches`
-(kernels 1–2) and :data:`repro_torch.kernels.edge_block.launches`
+(kernels 1–3) and :data:`repro_torch.kernels.edge_block.launches`
 (kernels 4–5).
 """
 from __future__ import annotations
@@ -14,9 +14,11 @@ from typing import TYPE_CHECKING
 import torch
 
 from . import ref
-from .dissatisfaction import (cost_matrix_cuda, cost_matrix_plain,
-                              dissatisfaction_from_aggregate_cuda,
-                              dissatisfaction_from_aggregate_plain)
+from .dissatisfaction import (
+    cost_matrix_cuda, cost_matrix_plain,
+    dissatisfaction_from_aggregate_batched_cuda,
+    dissatisfaction_from_aggregate_batched_plain,
+    dissatisfaction_from_aggregate_cuda, dissatisfaction_from_aggregate_plain)
 from .edge_block import (dissatisfaction_from_edges_cuda,
                          dissatisfaction_from_edges_plain,
                          sweep_candidates_from_edges_cuda,
@@ -79,6 +81,34 @@ def make_aggregate_dissat_fn() -> DissatFn:
     def fn(aggregate, assignment, node_weights, loads, speeds, mu,
            framework, total_weight, theta=None):
         return dissatisfaction_from_aggregate(
+            aggregate, assignment, node_weights, loads, speeds, mu,
+            total_weight, framework, theta=theta)
+    return fn
+
+
+def dissatisfaction_from_aggregate_batched(aggregate, row_assignment,
+                                           node_weights, loads, speeds, mu,
+                                           total_weight,
+                                           framework: str = "c", theta=None):
+    """:func:`dissatisfaction_from_aggregate` over a fleet (DESIGN.md
+    §12.3): every operand gains a leading B axis (``mu``, ``total_weight``
+    (B,); ``theta`` ``None`` or (B, rows)).  CUDA tensors go to kernel 3,
+    CPU tensors to its twin; element b is bitwise the unbatched call on
+    element b."""
+    fn = (dissatisfaction_from_aggregate_batched_cuda if _on_card(aggregate)
+          else dissatisfaction_from_aggregate_batched_plain)
+    return fn(aggregate, row_assignment, node_weights, loads, speeds, mu,
+              framework, theta=theta, total_weight=total_weight)
+
+
+def make_aggregate_dissat_fn_batched() -> DissatFn:
+    """The 9-argument ``dissat_fn`` convention with a leading batch axis on
+    every operand, on kernel 3 — what
+    :func:`repro_torch.core.batch.refine_batched` uses when it is given no
+    ``dissat_fn``."""
+    def fn(aggregate, assignment, node_weights, loads, speeds, mu,
+           framework, total_weight, theta=None):
+        return dissatisfaction_from_aggregate_batched(
             aggregate, assignment, node_weights, loads, speeds, mu,
             total_weight, framework, theta=theta)
     return fn

@@ -167,3 +167,64 @@ def test_edge_kernels_refuse_what_they_do_not_take(card):
         E.sweep_candidates_from_edges_cuda(
             sp, r, sp.node_weights, torch.ones(D.MAX_K + 1, device=card),
             torch.ones(D.MAX_K + 1, device=card), sp.mu, "c")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("framework", ["c", "ct"])
+@pytest.mark.parametrize("bsz,n,k", [(3, 1003, 8), (2, 300, 128),
+                                     (4, 5000, 3)])
+def test_batched_dissat_kernel_bitwise(card, bsz, n, k, framework):
+    """Kernel 3 == its twin and == kernel 1 on each element, bitwise (best
+    and dissat), with and without theta; each element has its own loads,
+    speeds, mu and B."""
+    rng = np.random.default_rng(bsz + n + k)
+    agg = torch.as_tensor(rng.uniform(0, 50, (bsz, n, k)).astype(np.float32),
+                          device=card)
+    r = torch.as_tensor(rng.integers(0, k, (bsz, n)).astype(np.int32),
+                        device=card)
+    b = torch.as_tensor(rng.uniform(0.1, 10, (bsz, n)).astype(np.float32),
+                        device=card)
+    speeds = torch.as_tensor(rng.uniform(0.2, 2.0, (bsz, k))
+                             .astype(np.float32), device=card)
+    speeds = speeds / speeds.sum(dim=1, keepdim=True)
+    from repro_torch.core.problem import machine_loads
+    loads = torch.stack([machine_loads(b[e], r[e], k) for e in range(bsz)])
+    mu = torch.as_tensor(rng.choice([4.0, 8.0, 16.0], bsz).astype(np.float32),
+                         device=card)
+    total = torch.stack([torch.sum(x) for x in b])
+    for theta in (None, torch.full((bsz, n), 0.5, device=card)):
+        got = D.dissatisfaction_from_aggregate_batched_cuda(
+            agg, r, b, loads, speeds, mu, framework, theta=theta,
+            total_weight=total)
+        twin = D.dissatisfaction_from_aggregate_batched_plain(
+            agg, r, b, loads, speeds, mu, framework, theta=theta,
+            total_weight=total)
+        torch.cuda.synchronize()
+        assert torch.equal(got[1], twin[1])
+        assert torch.equal(got[0], twin[0])
+        for e in range(bsz):
+            one = D.dissatisfaction_from_aggregate_cuda(
+                agg[e], r[e], b[e], loads[e], speeds[e], mu[e], framework,
+                theta=None if theta is None else theta[e],
+                total_weight=total[e])
+            torch.cuda.synchronize()
+            assert torch.equal(got[1][e], one[1])
+            assert torch.equal(got[0][e], one[0])
+
+
+@pytest.mark.gpu
+def test_batched_dissat_kernel_refuses_what_it_does_not_take(card):
+    agg = torch.zeros((2, 10, 4), device=card)
+    r = torch.zeros((2, 10), dtype=torch.int32, device=card)
+    b = torch.ones((2, 10), device=card)
+    w = torch.full((2, 4), 0.25, device=card)
+    mu = torch.full((2,), 8.0, device=card)
+    with pytest.raises(ValueError, match="mu"):
+        D.dissatisfaction_from_aggregate_batched_cuda(
+            agg, r, b, w, w, mu[:1], "c")
+    with pytest.raises(ValueError, match="int32"):
+        D.dissatisfaction_from_aggregate_batched_cuda(
+            agg, r.long(), b, w, w, mu, "c")
+    with pytest.raises(ValueError, match="B, rows, K"):
+        D.dissatisfaction_from_aggregate_batched_cuda(
+            agg[0], r[0], b[0], w[0], w[0], mu, "c")

@@ -34,7 +34,7 @@ def test_port_imports_no_jax_and_no_reference():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     report = json.loads(out.stdout.strip().splitlines()[-1])
-    assert report["modules"] >= 18
+    assert report["modules"] >= 23
     assert report["imported"] == []
 
 
@@ -45,9 +45,10 @@ def test_every_port_module_is_listed():
         [str(REPO / "src" / "repro_torch")], "repro_torch.")}
     for mod in ("core.problem", "core.costs", "core.aggregate",
                 "core.checkpoint", "core.refine", "core.initial",
-                "core.sparse", "core.cluster",
+                "core.sparse", "core.cluster", "core.batch",
                 "kernels.dissatisfaction", "kernels.edge_block",
                 "kernels.ops", "kernels.ref",
                 "kernels._build", "graphs.generators", "provenance",
-                "quickstart"):
+                "quickstart", "sweeps", "sweeps.runtime", "sweeps.metrics",
+                "sweep_study"):
         assert f"repro_torch.{mod}" in names

@@ -178,7 +178,12 @@ def test_cpu_tensors_take_the_twin_and_count_no_launch():
     fn = ops.make_aggregate_dissat_fn()
     fn(_t(_ref_aggregate(adj, r, 3)), _t(r), _t(b), _t(loads), _t(speeds),
        torch.tensor(8.0), "c", torch.sum(_t(b)), None)
-    assert D.launches == {"dissat_from_aggregate": 0, "cost_matrix": 0}
+    ops.make_aggregate_dissat_fn_batched()(
+        _t(_ref_aggregate(adj, r, 3))[None], _t(r)[None], _t(b)[None],
+        _t(loads)[None], _t(speeds)[None], torch.tensor([8.0]), "c",
+        torch.sum(_t(b))[None], None)
+    assert D.launches == {"dissat_from_aggregate": 0, "cost_matrix": 0,
+                          "dissat_from_aggregate_batched": 0}
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
