@@ -1,9 +1,11 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: builds the CUDA kernels,
 holds each against its plain PyTorch twin, drives the dense partition game
 end to end at N=16384, K=16, the sparse sweep runtime at the reference's
-million-node instance (N=10^6, E=9,002,624, K=8) and the batched fleets
-(32 dense problems of N=4096, K=16; 4 sparse ones of N=65536, K=8), times
-every kernel, and checks the results.
+million-node instance (N=10^6, E=9,002,624, K=8), the batched fleets
+(32 dense problems of N=4096, K=16; 4 sparse ones of N=65536, K=8) and
+the dense LM serving path (qwen1.5-4b at full width, 48 requests through
+the continuous-batching engine), times every kernel, and checks the
+results.
 
   python3 chip_smoke.py          # needs one CUDA card and nvcc
 
@@ -54,7 +56,28 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      fleet's initial sparse carry; 2048 batched ``refine`` turns, each
      element bitwise its looped run; then the same cases under ``mode="multimove"``
      (unbounded, move_prob 0.5, ε=1e-3, 24 sweeps), each bitwise a lone
-     ``refine_sweeps`` with the generator derived for its index.
+     ``refine_sweeps`` with the generator derived for its index;
+ 13. attention kernels vs twins on the card — kernel 6 (decode attention)
+     at (B, H, Hkv, D, S) = (16, 20, 20, 128, 4096), (4, 32, 8, 128, 1000)
+     and (3, 8, 1, 64, 777) with ragged lengths (one above S, clamped);
+     kernel 7 (causal flash attention) at (B, S, H, Hkv, D) = (1, 3072,
+     20, 20, 128), (2, 1000, 32, 8, 128) and (1, 333, 8, 1, 64); f32 and
+     bf16 within stated tolerances; refused launches raise;
+ 14. full-width serving — qwen1.5-4b's published config (40 layers,
+     d_model 2560, vocab 151936, f32 parameters, bf16 compute), weights
+     from ``init_params`` with a seeded generator on the card,
+     ``ServeConfig(max_batch=16, max_len=4096, cache_dtype="bfloat16")``,
+     48 greedy requests with prompts of 512-3072 tokens from
+     ``default_rng(0)`` and 64 new tokens each: every request complete,
+     every logit finite, kernel 7 launched 40 x 48 times, kernel 6 40 x
+     decode steps, no twin; prefill tokens/s, ms per decode step,
+     generated tok/s, and a profiled window of 8 decode steps;
+ 15. kernel path vs plain path at full width — one bf16 decode step of
+     phase 14's engine on both paths; then f32 compute, the same weights,
+     2 slots, max_len 1024, prompts of 500 and 900 tokens, 16 new tokens:
+     equal tokens, logits within a stated tolerance;
+ 16. attention times — kernels 6 and 7 at the serving shapes beside their
+     bound, their twins and ``scaled_dot_product_attention``.
 
 Each path's launch counts are set to 0 just before it and read just after.
 The line before the last two is the kernels' JSON record; then the card's
@@ -105,10 +128,37 @@ SPARSE_FLEET_K = 8
 SPARSE_FLEET_TURNS = 2048
 SPARSE_FLEET_SWEEPS = 24
 
-# H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s and f32 FLOP/s
-# outside the tensor cores
+# the dense LM serving path: qwen1.5-4b's published config unchanged
+LM_ARCH = "qwen1.5-4b"
+SERVE_SLOTS = 16
+SERVE_MAX_LEN = 4096
+SERVE_REQUESTS = 48
+SERVE_PROMPT = (512, 3072)  # prompt lengths, uniform, from default_rng(SEED)
+SERVE_NEW = 64
+PROFILE_STEPS = 8           # profiled engine decode steps at full occupancy
+PARITY_PROMPTS = (500, 900)  # phase 15, f32 compute, kernel vs plain path
+PARITY_NEW = 16
+PARITY_MAX_LEN = 1024
+# (B, H, Hkv, D, S) and (B, S, H, Hkv, D) of phase 13
+DECODE_SHAPES = ((16, 20, 20, 128, 4096), (4, 32, 8, 128, 1000),
+                 (3, 8, 1, 64, 777))
+FLASH_SHAPES = ((1, 3072, 20, 20, 128), (2, 1000, 32, 8, 128),
+                (1, 333, 8, 1, 64))
+# kernel vs twin, |diff| <= atol + rtol * |want|: f32 sums the same
+# products in another order; bf16 adds one rounding of the output (2^-7
+# relative at most)
+ATTN_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (1e-2, 1e-3)}
+# logits of the kernel path vs the plain path, as max |diff| over
+# max(1, max |logit|): f32 compute (rounding order only), and one bf16
+# decode step (bf16 rounding of the attention output, through 40 layers)
+F32_LOGIT_TOL = 1e-3
+BF16_STEP_TOL = 5e-2
+
+# H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s, f32 FLOP/s
+# outside the tensor cores, dense bf16 FLOP/s on the tensor cores
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 
 
 def log(*args) -> None:
@@ -375,24 +425,30 @@ def phase_main(D, ops, problem):
 # phase 4: times
 # ---------------------------------------------------------------------------
 
-def kernel_device_us(calls: dict) -> dict:
+def kernel_device_us(calls: dict, attempts: int = 3) -> dict:
     """Mean device time (us) of each kernel, by the profiler: ``calls``
-    maps a kernel name to (function launching it, repetitions)."""
+    maps a kernel name to (function launching it, repetitions).  A window
+    in which the profiler recorded none of the kernel's launches is taken
+    again, up to ``attempts`` windows; after that the time is None."""
     from torch.profiler import ProfilerActivity, profile
     out = {}
     for name, (fn, reps) in calls.items():
         fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        hits = [e for e in prof.key_averages()
-                if f"{name}_kernel" in e.key]
-        count = sum(e.count for e in hits)
-        out[name] = (sum(e.self_device_time_total for e in hits) / count
-                     if count else None)
+        out[name] = None
+        for _ in range(attempts):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+            hits = [e for e in prof.key_averages()
+                    if f"{name}_kernel" in e.key]
+            count = sum(e.count for e in hits)
+            if count:
+                out[name] = sum(e.self_device_time_total
+                                for e in hits) / count
+                break
     return out
 
 
@@ -1115,6 +1171,374 @@ def phase_sparse_fleet(D, card):
     return err
 
 
+# ---------------------------------------------------------------------------
+# phases 13-16: dense LM serving (qwen1.5-4b at full width, kernels 6-7)
+# ---------------------------------------------------------------------------
+
+def _attn_inputs(shapes, seed, dtype):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn(s, generator=g, device="cuda").to(dtype)
+            for s in shapes]
+
+
+def _attn_err(got, want, dtype, label):
+    """max |got - want| after checking ``ATTN_TOL[dtype]``: |d| <= atol +
+    rtol * |want| elementwise."""
+    rtol, atol = ATTN_TOL[dtype]
+    diff = (got.float() - want.float()).abs()
+    bad = diff > atol + rtol * want.float().abs()
+    if not bool(torch.isfinite(got.float()).all()) or bool(bad.any()):
+        fail(f"{label} vs twin beyond tolerance: max |diff| "
+             f"{float(diff.max())}")
+    return float(diff.max())
+
+
+def phase_attention_kernels(A, F):
+    """Kernels 6-7 against their twins on the card, f32 and bf16."""
+    err6 = err7 = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        for b, h, hkv, d, s in DECODE_SHAPES:
+            q, k, v = _attn_inputs([(b, h, d), (b, s, hkv, d),
+                                    (b, s, hkv, d)], b + s, dtype)
+            lens = np.random.default_rng(s).integers(1, s + 1, b)
+            lens[0], lens[-1] = 1, s + 904       # shortest; above S
+            if b > 2:
+                lens[1] = s
+            length = torch.as_tensor(lens.astype(np.int32), device="cuda")
+            got = A.decode_attention_cuda(q, k, v, length)
+            want = A.decode_attention_twin(q, k, v, length)
+            torch.cuda.synchronize()
+            e = _attn_err(got, want, dtype, f"kernel 6 {(b, h, hkv, d, s)}")
+            err6 = max(err6, e)
+            log(f"  kernel 6 (B, H, Hkv, D, S)={(b, h, hkv, d, s)} {name}, "
+                f"lengths {int(lens.min())}..{int(lens.max())}: max |diff| "
+                f"{e:.3e}")
+        for b, s, h, hkv, d in FLASH_SHAPES:
+            q, k, v = _attn_inputs([(b, s, h, d), (b, s, hkv, d),
+                                    (b, s, hkv, d)], b + s + 1, dtype)
+            got = F.flash_attention_cuda(q, k, v)
+            want = F.flash_attention_twin(q, k, v)
+            torch.cuda.synchronize()
+            e = _attn_err(got, want, dtype, f"kernel 7 {(b, s, h, hkv, d)}")
+            err7 = max(err7, e)
+            log(f"  kernel 7 (B, S, H, Hkv, D)={(b, s, h, hkv, d)} {name}: "
+                f"max |diff| {e:.3e}")
+            del q, k, v, got, want
+    log(f"  tolerances: f32 rtol {ATTN_TOL[torch.float32][0]} atol "
+        f"{ATTN_TOL[torch.float32][1]}; bf16 rtol "
+        f"{ATTN_TOL[torch.bfloat16][0]} atol {ATTN_TOL[torch.bfloat16][1]}")
+    q, k = _attn_inputs([(2, 4, 64), (2, 10, 2, 64)], 0, torch.float32)
+    length = torch.full((2,), 5, dtype=torch.int32, device="cuda")
+    q4, k4 = _attn_inputs([(1, 10, 4, 96), (1, 10, 2, 96)], 0,
+                          torch.float32)
+    qg, kg = _attn_inputs([(1, 4, 65, 8), (1, 4, 1, 8)], 0, torch.float32)
+    qd, kd = _attn_inputs([(1, 130, 128), (1, 8, 1, 128)], 0, torch.float32)
+    refusals = {
+        "a float16 input": lambda: A.decode_attention_cuda(
+            q.half(), k.half(), k.half(), length),
+        "a non-contiguous cache": lambda: A.decode_attention_cuda(
+            q, k.transpose(0, 1).contiguous().transpose(0, 1), k, length),
+        "head_dim 96": lambda: F.flash_attention_cuda(q4, k4, k4),
+        "a bf16 query with f32 keys": lambda: F.flash_attention_cuda(
+            q4[..., :64].contiguous().bfloat16(), k4[..., :64].contiguous(),
+            k4[..., :64].contiguous()),
+        "65 query heads per kv head (launcher)": lambda:
+            F.flash_attention_cuda(qg, kg, kg),
+        "130 query heads per kv head at D=128 (launcher)": lambda:
+            A.decode_attention_cuda(qd, kd, kd, length[:1]),
+    }
+    for what, call in refusals.items():
+        try:
+            call()
+        except (ValueError, RuntimeError) as exc:
+            log(f"  refused {what}: {exc}")
+        else:
+            fail(f"a kernel launched on {what}")
+    # a refused launch leaves no error behind for the next one
+    _attn_err(A.decode_attention_cuda(q, k, k, length),
+              A.decode_attention_twin(q, k, k, length), torch.float32,
+              "kernel 6 after a refused launch")
+    return err6, err7
+
+
+def _request_prompts(vocab: int):
+    rng = np.random.default_rng(SEED)
+    lens = rng.integers(SERVE_PROMPT[0], SERVE_PROMPT[1] + 1, SERVE_REQUESTS)
+    return [rng.integers(0, vocab, n).astype(np.int32) for n in lens]
+
+
+class FiniteGreedy:
+    """Greedy sampling that also keeps, on the device, whether every
+    logit it saw was finite (read once, after the run)."""
+
+    def __init__(self):
+        self.finite = torch.ones((), dtype=torch.bool, device="cuda")
+
+    def __call__(self, logits):
+        from repro_torch.serving.sampler import greedy
+        self.finite &= torch.isfinite(logits).all()
+        return greedy(logits)
+
+
+def phase_serving(A, F, card):
+    """Phase 14: qwen1.5-4b at full width through the port's
+    ServingEngine, kernels 6-7 on every layer, no twin."""
+    from repro_torch import configs
+    from repro_torch.models import init_params
+    from repro_torch.models.convert import param_count
+    from repro_torch.serving import Request, ServeConfig, ServingEngine
+    cfg = configs.get_config(LM_ARCH)
+    log(f"  {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.num_heads} heads (kv {cfg.num_kv_heads}) x {cfg.head_dim}, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, qkv_bias "
+        f"{cfg.qkv_bias}, params {cfg.param_dtype}, compute "
+        f"{cfg.compute_dtype}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        SEED))
+    torch.cuda.synchronize()
+    n_params = param_count(params)
+    log(f"  init_params on the card (seed {SEED}): {n_params} parameters "
+        f"({4 * n_params / 1e9:.2f} GB f32) in "
+        f"{time.perf_counter() - t0:.2f} s")
+    if n_params != cfg.param_count():
+        fail(f"{n_params} parameters, the config counts {cfg.param_count()}")
+    serve = ServeConfig(max_batch=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
+                        cache_dtype="bfloat16")
+    sampler = FiniteGreedy()
+    t0 = time.perf_counter()
+    engine = ServingEngine(cfg, params, serve, sampler=sampler)
+    torch.cuda.synchronize()
+    log(f"  engine: {serve}, weights cast to {cfg.compute_dtype} once and "
+        f"KV cache allocated in {time.perf_counter() - t0:.2f} s; device memory "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    prompts = _request_prompts(cfg.vocab_size)
+    for uid, prompt in enumerate(prompts):
+        engine.submit(Request(uid, prompt, max_new_tokens=SERVE_NEW))
+    log(f"  {len(prompts)} requests, prompt lengths "
+        f"{min(p.size for p in prompts)}..{max(p.size for p in prompts)} "
+        f"(sum {sum(p.size for p in prompts)}) from default_rng({SEED}), "
+        f"{SERVE_NEW} new tokens each, greedy")
+
+    for mod in (A, F):
+        mod.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    stats = engine.run()
+    launches = {**A.launches, **F.launches}
+    twins = {**A.twin_calls, **F.twin_calls}
+    steps = stats["decode_steps"]
+    log(f"  served: {stats['requests']} requests, {stats['prefills']} "
+        f"prefills, {steps} decode steps, {stats['generated_tokens']} "
+        f"generated tokens in {stats['wall_s']:.3f} s: "
+        f"{stats['tok_per_s']:.2f} generated tok/s [{card}]")
+    log(f"  prefill: {stats['prefill_tokens']} prompt tokens in "
+        f"{stats['prefill_s']:.3f} s, "
+        f"{stats['prefill_tokens'] / stats['prefill_s']:.1f} prefill tok/s; "
+        f"decode: {1e3 * stats['decode_s'] / steps:.3f} ms per decode step "
+        f"(16 slots); peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    log(f"  launches over the serving run: {launches}; twin calls {twins}")
+    if stats["requests"] != SERVE_REQUESTS or len(engine.finished) \
+            != SERVE_REQUESTS:
+        fail(f"{stats['requests']} of {SERVE_REQUESTS} requests finished")
+    if any(len(r.output) != SERVE_NEW for r in engine.finished):
+        fail("a request did not produce its 64 tokens")
+    if not bool(sampler.finite):
+        fail("non-finite logits while serving")
+    want = {"flash_attention": cfg.num_layers * SERVE_REQUESTS,
+            "decode_attention": cfg.num_layers * steps}
+    for name, n in want.items():
+        if launches[name] != n:
+            fail(f"kernel {name} launched {launches[name]} times, want {n}")
+    if any(twins.values()):
+        fail(f"a twin ran on the serving path: {twins}")
+    log(f"  checks: every request has {SERVE_NEW} tokens, every logit "
+        f"finite, kernel 7 launched {cfg.num_layers} x {SERVE_REQUESTS} and "
+        f"kernel 6 {cfg.num_layers} x {steps} times, no twin ran")
+
+    # a profiled window of decode steps at full occupancy: every slot gets
+    # a request that continues from the slot's cache as the run left it
+    for slot in range(SERVE_SLOTS):
+        req = Request(10_000 + slot, np.zeros(1, np.int32),
+                      max_new_tokens=PROFILE_STEPS + 1)
+        req.output.append(int(engine.finished[slot].output[-1]))
+        engine.slots[slot] = req
+        engine.budget[slot] = PROFILE_STEPS
+    pos = engine.cache.position.tolist()
+    steps0 = engine.steps
+    _, wall, dev_s, dev_launches, top = busy_share(
+        lambda: [engine.step() for _ in range(PROFILE_STEPS)])
+    log(f"  profiled {engine.steps - steps0} engine decode steps (16 slots "
+        f"at cache positions {min(pos)}..{max(pos)}): wall "
+        f"{1e3 * wall / PROFILE_STEPS:.3f} ms/step, device "
+        f"{1e3 * dev_s / PROFILE_STEPS:.3f} ms/step, busy share "
+        f"{dev_s / wall:.4f}, {dev_launches / PROFILE_STEPS:.1f} device "
+        f"launches per step")
+    for ev in top:
+        log(f"    {ev.key[:60]:60s} {ev.count:6d} x "
+            f"{ev.self_device_time_total / max(ev.count, 1):8.2f} us")
+    return params, engine, {"stats": stats, "launches": launches}
+
+
+def _max_rel(a, b) -> float:
+    return float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+
+
+def phase_paths(params, engine):
+    """Phase 15: the kernel path against the plain path at full width."""
+    import dataclasses
+
+    from repro_torch.models.transformer import decode_step
+    from repro_torch.serving import Request, ServeConfig, ServingEngine
+    from repro_torch.serving.sampler import greedy
+
+    cfg = engine.cfg
+    # (a) one bf16 decode step of phase 14's engine on both paths, from
+    # the same state: each path writes its own new row before reading it
+    last = torch.as_tensor([[r.output[-1]] for r in
+                            engine.finished[-SERVE_SLOTS:]], device="cuda")
+    pos = engine.cache.position.clone()
+    out = {}
+    for path in ("kernel", "plain"):
+        logits, cache = decode_step(engine.params, cfg, last,
+                                    engine.cache._replace(position=pos),
+                                    attention=path)
+        out[path] = logits[:, 0].float()
+    rel = _max_rel(out["kernel"], out["plain"])
+    agree = int((greedy(out["kernel"]) == greedy(out["plain"])).sum())
+    log(f"  bf16 decode step at 16 slots: max |diff| / max(1, max|logit|) "
+        f"= {rel:.3e} (tolerance {BF16_STEP_TOL}); argmax equal on {agree}"
+        f"/{SERVE_SLOTS} slots")
+    if not rel <= BF16_STEP_TOL:
+        fail("the bf16 decode step differs between the kernel and plain "
+             "paths beyond tolerance")
+
+    # (b) f32 compute, the same weights, two requests on each path
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    rng = np.random.default_rng(SEED + 1)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in PARITY_PROMPTS]
+    runs = {}
+    for path in ("kernel", "plain"):
+        seen = []
+
+        def sampler(logits, seen=seen):
+            seen.append(logits[:, -1].float().cpu())
+            return greedy(logits)
+
+        eng = ServingEngine(cfg32, params, ServeConfig(
+            max_batch=2, max_len=PARITY_MAX_LEN, cache_dtype="float32"),
+            sampler=sampler, attention=path)
+        for uid, p in enumerate(prompts):
+            eng.submit(Request(uid, p, max_new_tokens=PARITY_NEW))
+        t0 = time.perf_counter()
+        eng.run()
+        runs[path] = ({r.uid: r.output for r in eng.finished}, seen,
+                      time.perf_counter() - t0)
+        del eng
+    tok_k, logit_k, wall_k = runs["kernel"]
+    tok_p, logit_p, wall_p = runs["plain"]
+    rel32 = max(_max_rel(a, b) for a, b in zip(logit_k, logit_p))
+    log(f"  f32 compute, prompts {PARITY_PROMPTS}, {PARITY_NEW} new tokens: "
+        f"kernel path {wall_k:.3f} s, plain path {wall_p:.3f} s; tokens "
+        f"equal: {tok_k == tok_p}; logits max |diff| / max(1, max|logit|) "
+        f"= {rel32:.3e} over {len(logit_k)} sampler calls (tolerance "
+        f"{F32_LOGIT_TOL})")
+    if tok_k != tok_p:
+        fail("the kernel and plain paths generated different tokens")
+    if len(logit_k) != len(logit_p) or not rel32 <= F32_LOGIT_TOL:
+        fail("f32 logits differ between the kernel and plain paths beyond "
+             "tolerance")
+    return {"bf16_rel": rel, "bf16_argmax_equal": agree, "f32_rel": rel32}
+
+
+def _sdpa():
+    return torch.nn.functional.scaled_dot_product_attention
+
+
+def phase_attention_times(A, F, engine, card):
+    """Phase 16: kernels 6-7 at the serving shapes."""
+    cfg_h, hkv, d = 20, 20, 128
+    # kernel 6: layer 0 of the engine's cache, each slot's current length
+    k6, v6 = engine.cache.kv_k[0], engine.cache.kv_v[0]
+    b, s = k6.shape[0], k6.shape[1]
+    length = torch.clamp(engine.cache.position + 1, max=s).to(torch.int32)
+    (q6,) = _attn_inputs([(b, cfg_h, d)], 6, torch.bfloat16)
+    valid = int(length.sum())
+    mask = (torch.arange(s, device="cuda")[None, :] < length[:, None])[
+        :, None, None, :]
+
+    def k6_call():
+        A.decode_attention_cuda(q6, k6, v6, length)
+
+    def p6_call():
+        A.decode_attention_twin(q6, k6, v6, length)
+
+    def lib6_call():
+        _sdpa()(q6[:, :, None, :], k6.transpose(1, 2), v6.transpose(1, 2),
+                attn_mask=mask, enable_gqa=True)
+
+    # kernel 7: the longest prompt of the serving run, S = 3072
+    s7 = SERVE_PROMPT[1]
+    q7, k7, v7 = _attn_inputs([(1, s7, cfg_h, d), (1, s7, hkv, d),
+                               (1, s7, hkv, d)], 7, torch.bfloat16)
+
+    def k7_call():
+        F.flash_attention_cuda(q7, k7, v7)
+
+    def p7_call():
+        F.flash_attention_twin(q7, k7, v7)
+
+    def lib7_call():
+        _sdpa()(q7.transpose(1, 2), k7.transpose(1, 2), v7.transpose(1, 2),
+                is_causal=True, enable_gqa=True)
+
+    calls = {"k6": (k6_call, 50), "p6": (p6_call, 5), "l6": (lib6_call, 20),
+             "k7": (k7_call, 10), "p7": (p7_call, 3), "l7": (lib7_call, 10)}
+    t = {name: [] for name in calls}
+    for order in (list(calls), list(reversed(calls))):
+        for name in order:
+            fn, iters = calls[name]
+            t[name].append(cuda_ms(fn, iters, warmup=2))
+    ms = {name: float(np.mean(v)) for name, v in t.items()}
+    device_us = kernel_device_us({"decode_attention": (k6_call, 20),
+                                  "flash_attention": (k7_call, 5)})
+    bf = 2
+    bytes6 = bf * (2 * valid * hkv * d + 2 * b * cfg_h * d) + 4 * b
+    ops6 = 4 * valid * cfg_h * d           # q.k and p.v, 2 flops per MAC
+    bytes7 = bf * (2 * s7 * cfg_h * d + 2 * s7 * hkv * d)
+    ops7 = 4 * cfg_h * d * s7 * (s7 + 1) // 2
+    out = []
+    for name, byt, flops, kern, plain, lib, line, shape in (
+            ("decode_attention", bytes6, ops6, ms["k6"], ms["p6"], ms["l6"],
+             "decode_attention.py:70",
+             f"(B, H, Hkv, D, S)=({b}, {cfg_h}, {hkv}, {d}, {s}), bf16, "
+             f"{valid} valid positions"),
+            ("flash_attention", bytes7, ops7, ms["k7"], ms["p7"], ms["l7"],
+             "flash_attention.py:90",
+             f"(B, S, H, Hkv, D)=(1, {s7}, {cfg_h}, {hkv}, {d}), bf16")):
+        t_bytes = 1e3 * byt / PEAK_BYTES_S
+        t_ops = 1e3 * flops / PEAK_BF16_FLOPS
+        rec = {"name": name, "route": "cuda",
+               "source": "src/repro_torch/kernels/csrc/attention.cu",
+               "replaces": f"src/repro/kernels/{line}",
+               "ms": kern, "plain_ms": plain,
+               "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "library_ms": lib}
+        dev = device_us[name]
+        log(f"  {name} at {shape}: kernel {kern:.5f} ms per call "
+            f"({'not measured' if dev is None else f'{dev:.2f} us'} on the "
+            f"device), twin {plain:.5f} ms, bound {rec['bound_ms']:.5f} ms "
+            f"({rec['bound_by']}; {byt / 1e6:.2f} MB, {flops / 1e9:.2f} "
+            f"GFLOP), library (scaled_dot_product_attention) {lib:.5f} ms "
+            f"[{card}]")
+        out.append(rec)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke run needs one GPU")
@@ -1220,6 +1644,24 @@ def main() -> int:
 
     log("== phase 12: sparse fleet and multimove")
     k3["max_abs_err"] = max(k3["max_abs_err"], phase_sparse_fleet(D, card))
+    torch.cuda.empty_cache()
+
+    from repro_torch.kernels import decode_attention as A
+    from repro_torch.kernels import flash_attention as F
+    log("== phase 13: attention kernels 6-7 vs plain twins on the card")
+    err6, err7 = phase_attention_kernels(A, F)
+    log(f"== phase 14: {LM_ARCH} at full width through ServingEngine "
+        f"(kernels 6-7)")
+    params, engine, serving = phase_serving(A, F, card)
+    log("== phase 15: kernel path vs plain path at full width")
+    phase_paths(params, engine)
+    log("== phase 16: attention times (CUDA events, serving shapes)")
+    attn = phase_attention_times(A, F, engine, card)
+    for rec, err in zip(attn, (err6, err7)):
+        rec["launches"] = serving["launches"][rec["name"]]
+        rec["max_abs_err"] = err
+    kernels += attn
+    del params, engine
     log(f"  total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

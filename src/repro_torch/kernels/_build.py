@@ -53,6 +53,12 @@ SIGNATURES = {
         # framework, stream
         "sweep_candidates_from_edges": [_F] * 13 + [_I, _I, _I, _I, _F],
     },
+    "attention": {
+        # q, k, v, length, out, B, H, Hkv, S, D, dtype, stream
+        "decode_attention": [_F] * 5 + [_I] * 6 + [_F],
+        # q, k, v, out, B, S, H, Hkv, D, dtype, stream
+        "flash_attention": [_F] * 4 + [_I] * 6 + [_F],
+    },
 }
 
 _libraries: dict[str, ctypes.CDLL] = {}

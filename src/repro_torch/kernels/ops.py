@@ -4,8 +4,9 @@ Each adapter dispatches on where its tensors lie: CUDA tensors go to the
 hand-written kernel (which raises on what it does not take — there is no
 fallback), CPU tensors to the kernel's plain PyTorch twin.  The launch
 counts live in :data:`repro_torch.kernels.dissatisfaction.launches`
-(kernels 1–3) and :data:`repro_torch.kernels.edge_block.launches`
-(kernels 4–5).
+(kernels 1–3), :data:`repro_torch.kernels.edge_block.launches` (kernels
+4–5), :data:`repro_torch.kernels.decode_attention.launches` (kernel 6)
+and :data:`repro_torch.kernels.flash_attention.launches` (kernel 7).
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ from typing import TYPE_CHECKING
 import torch
 
 from . import ref
+from .decode_attention import decode_attention_cuda, decode_attention_twin
 from .dissatisfaction import (
     cost_matrix_cuda, cost_matrix_plain,
     dissatisfaction_from_aggregate_batched_cuda,
@@ -23,6 +25,7 @@ from .edge_block import (dissatisfaction_from_edges_cuda,
                          dissatisfaction_from_edges_plain,
                          sweep_candidates_from_edges_cuda,
                          sweep_candidates_from_edges_plain)
+from .flash_attention import flash_attention_cuda, flash_attention_twin
 
 if TYPE_CHECKING:
     from ..core.refine import DissatFn, SweepCandidateFn
@@ -151,3 +154,19 @@ def make_edge_sweep_fn(problem) -> SweepCandidateFn:
                         mu, framework, theta=theta,
                         total_weight=total_weight)
     return fn
+
+
+def decode_attention(q, k, v, length) -> torch.Tensor:
+    """GQA single-token decode attention: q (B, H, D) against the first
+    ``length[b]`` rows of k, v (B, S, Hkv, D).  CUDA tensors go to kernel
+    6, CPU tensors to its twin."""
+    fn = decode_attention_cuda if _on_card(q) else decode_attention_twin
+    return fn(q, k, v, length)
+
+
+def flash_attention(q, k, v) -> torch.Tensor:
+    """Causal GQA attention, q (B, S, H, D) and k, v (B, S, Hkv, D), with
+    no S x S logits in device memory.  CUDA tensors go to kernel 7, CPU
+    tensors to its twin."""
+    fn = flash_attention_cuda if _on_card(q) else flash_attention_twin
+    return fn(q, k, v)

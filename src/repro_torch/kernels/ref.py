@@ -1,6 +1,7 @@
-"""Plain PyTorch oracle for the cost-matrix kernel (port of
-``repro.kernels.ref.cost_matrix_ref``): the ground truth the kernels and
-their twins are held against, in the reference oracle's own op order."""
+"""Plain PyTorch oracles (port of ``repro.kernels.ref``): the ground truth
+the kernels and their twins are held against, in the reference oracles'
+own op order — the cost matrix, and the two attention functions with an
+f32 softmax over the fully built logits and ``-inf`` masks."""
 from __future__ import annotations
 
 import torch
@@ -34,3 +35,43 @@ def cost_matrix_ref(adjacency, assignment, node_weights, loads, speeds, mu,
                 + 2.0 * bcol * inv_w2 * others
                 - 2.0 * bcol * inv_w * total) + cut_term
     raise ValueError(framework)
+
+
+def decode_attention_ref(q, k, v, length) -> torch.Tensor:
+    """Single-token decode attention — oracle for kernel 6.
+
+    q: (B, H, D); k/v: (B, S, Hkv, D) with Hkv | H (GQA); ``length`` (B,)
+    gives the valid prefix of the cache.  Returns (B, H, D) in q's dtype.
+    """
+    b, h, d = q.shape
+    s, hkv = k.shape[1], k.shape[2]
+    qg = q.reshape(b, hkv, h // hkv, d)
+    logits = torch.einsum("bhgd,bshd->bhgs", qg.to(torch.float32),
+                          k.to(torch.float32)) \
+        / torch.sqrt(torch.tensor(d, dtype=torch.float32))
+    length = torch.as_tensor(length, device=q.device)
+    mask = torch.arange(s, device=q.device)[None, None, None, :] \
+        < length[:, None, None, None]
+    logits = torch.where(mask, logits, -torch.inf)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgs,bshd->bhgd", probs, v.to(torch.float32))
+    return out.reshape(b, h, d).to(q.dtype)
+
+
+def flash_attention_ref(q, k, v) -> torch.Tensor:
+    """Causal GQA attention — oracle for kernel 7.
+
+    q: (B, S, H, D); k/v: (B, S, Hkv, D) with Hkv | H.  Builds the S x S
+    logits (the thing the kernel never builds).
+    """
+    b, s, h, d = q.shape
+    hkv = k.shape[2]
+    qg = q.reshape(b, s, hkv, h // hkv, d)
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg.to(torch.float32),
+                          k.to(torch.float32)) \
+        / torch.sqrt(torch.tensor(d, dtype=torch.float32))
+    mask = torch.tril(torch.ones((s, s), dtype=torch.bool, device=q.device))
+    logits = torch.where(mask[None, None, None], logits, -torch.inf)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v.to(torch.float32))
+    return out.reshape(b, s, h, d).to(q.dtype)

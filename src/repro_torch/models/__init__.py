@@ -1,0 +1,12 @@
+"""The LM stack (port of ``repro.models``): configuration, layers, GQA
+attention on kernels 6–7, and the dense decoder's prefill and decode."""
+from .config import DENSE, HYBRID, MOE, SSM, ModelConfig  # noqa: F401
+from .transformer import (  # noqa: F401
+    DecodeCache,
+    cast_params,
+    decode_step,
+    forward_logits,
+    init_cache,
+    init_params,
+    prefill,
+)

@@ -1,0 +1,52 @@
+"""The reference's parameter tree as the port's parameters.
+
+``params_from_reference(tree)`` takes the tree of
+``repro.models.transformer.init_params`` with numpy leaves (``np.asarray``
+of each JAX array; the caller converts, so this module needs no JAX) and
+returns the dict that :mod:`repro_torch.models.transformer` reads: the
+same names, with the stacked ``blocks`` (leading L axis) split into a list
+of per-layer dicts.  Values are copied exactly; bfloat16 leaves pass
+through float32, which holds every bfloat16 value.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..core.problem import resolve_device
+
+
+def _tensor(leaf, device) -> torch.Tensor:
+    arr = np.asarray(leaf)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.astype(np.float32)).to(
+            device=device, dtype=torch.bfloat16)
+    return torch.from_numpy(np.array(arr)).to(device)
+
+
+def _map(tree, fn):
+    if isinstance(tree, dict):
+        return {name: _map(value, fn) for name, value in tree.items()}
+    return fn(tree)
+
+
+def params_from_reference(tree: dict, device=None) -> dict:
+    """The port's parameters from the reference's tree, on ``device``
+    (default: the card)."""
+    device = resolve_device(device)
+    out = {name: _map(value, lambda a: _tensor(a, device))
+           for name, value in tree.items() if name != "blocks"}
+    layers = np.asarray(tree["blocks"]["attn_norm"]).shape[0]
+    out["blocks"] = [_map(tree["blocks"],
+                          lambda a, i=i: _tensor(np.asarray(a)[i], device))
+                     for i in range(layers)]
+    return out
+
+
+def param_count(params) -> int:
+    """Elements in a parameter dict of the port."""
+    if isinstance(params, list):
+        return sum(param_count(p) for p in params)
+    if isinstance(params, dict):
+        return sum(param_count(p) for p in params.values())
+    return params.numel()

@@ -1,0 +1,65 @@
+"""Shared neural building blocks (port of ``repro.models.layers``).
+
+Parameters are nested dicts of tensors; every function takes the params
+subtree it owns, under the reference's names.  Each function rounds where
+the reference rounds: statistics and RoPE angles in float32, the result
+back in the input's dtype.  ``causal_conv1d`` comes with the SSM slice.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def normal_init(generator: torch.Generator, shape, scale: float,
+                dtype: torch.dtype, device=None) -> torch.Tensor:
+    """``scale * N(0, 1)`` drawn in float32 from ``generator`` on its
+    device, then cast to ``dtype``."""
+    device = generator.device if device is None else device
+    x = torch.randn(shape, generator=generator, dtype=torch.float32,
+                    device=device)
+    return (x * scale).to(dtype)
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float):
+    dtype = x.dtype
+    x = x.to(torch.float32)
+    var = torch.mean(torch.square(x), dim=-1, keepdim=True)
+    x = x * torch.rsqrt(var + eps)
+    return (x * weight.to(torch.float32)).to(dtype)
+
+
+def rope_frequencies(head_dim: int, theta: float, device=None):
+    half = head_dim // 2
+    exponents = torch.arange(half, dtype=torch.float32, device=device) / half
+    return 1.0 / (theta ** exponents)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
+    """x: (..., S, H, D); positions: broadcastable to (..., S)."""
+    head_dim = x.shape[-1]
+    freqs = rope_frequencies(head_dim, theta, x.device)        # (D/2,)
+    angles = positions[..., None].to(torch.float32) * freqs    # (..., S, D/2)
+    cos = torch.cos(angles)[..., None, :]                      # (..., S, 1, D/2)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def swiglu(x, w_gate, w_up, w_down):
+    dtype = x.dtype
+    gate = x @ w_gate.to(dtype)
+    up = x @ w_up.to(dtype)
+    return (F.silu(gate) * up) @ w_down.to(dtype)
+
+
+def init_mlp(generator: torch.Generator, d_model: int, d_ff: int,
+             dtype: torch.dtype) -> dict:
+    scale_in = d_model ** -0.5
+    scale_out = d_ff ** -0.5
+    return {
+        "gate": normal_init(generator, (d_model, d_ff), scale_in, dtype),
+        "up": normal_init(generator, (d_model, d_ff), scale_in, dtype),
+        "down": normal_init(generator, (d_ff, d_model), scale_out, dtype),
+    }

@@ -228,3 +228,125 @@ def test_batched_dissat_kernel_refuses_what_it_does_not_take(card):
     with pytest.raises(ValueError, match="B, rows, K"):
         D.dissatisfaction_from_aggregate_batched_cuda(
             agg[0], r[0], b[0], w[0], w[0], mu, "c")
+
+
+# ---------------------------------------------------------------------------
+# kernels 6-7: attention.  Tolerances: f32 atol = rtol = 2e-5 (the kernel
+# and its twin sum the same f32 products in different orders); bf16 rtol
+# 1e-2, atol 1e-3 (one rounding of the output to bf16, 2^-7 relative at
+# most, on either side of a tie).
+# ---------------------------------------------------------------------------
+
+_ATTN_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
+             torch.bfloat16: dict(rtol=1e-2, atol=1e-3)}
+
+
+def _normal(card, shape, seed, dtype):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
+                            ).to(card, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,hkv,d,s", [(4, 32, 8, 128, 1000),
+                                         (3, 8, 1, 64, 777),
+                                         (2, 4, 4, 16, 130),
+                                         (2, 8, 2, 8, 65)])
+def test_decode_attention_kernel_matches_twin(card, b, h, hkv, d, s, dtype):
+    """Kernel 6 vs its twin and the ``-inf``-masked oracle, ragged lengths
+    1..S and one above S (clamped); values past a row's length change
+    nothing."""
+    from repro_torch.kernels import decode_attention as A
+    from repro_torch.kernels import ref as R
+    q = _normal(card, (b, h, d), s + 1, dtype)
+    k = _normal(card, (b, s, hkv, d), s + 2, dtype)
+    v = _normal(card, (b, s, hkv, d), s + 3, dtype)
+    rng = np.random.default_rng(s)
+    lens = rng.integers(1, s + 1, b)
+    lens[0] = s + 17
+    length = torch.as_tensor(lens.astype(np.int32), device=card)
+    got = A.decode_attention_cuda(q, k, v, length)
+    want = A.decode_attention_twin(q, k, v, length)
+    oracle = R.decode_attention_ref(q, k, v, length)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (b, h, d)
+    torch.testing.assert_close(got.float(), want.float(), **_ATTN_TOL[dtype])
+    torch.testing.assert_close(got.float(), oracle.float(),
+                               **_ATTN_TOL[dtype])
+    short = torch.as_tensor(np.minimum(lens, s // 2).astype(np.int32),
+                            device=card)
+    poisoned_k, poisoned_v = k.clone(), v.clone()
+    poisoned_k[:, s // 2:] = 1e4
+    poisoned_v[:, s // 2:] = -1e4
+    a = A.decode_attention_cuda(q, k, v, short)
+    c = A.decode_attention_cuda(q, poisoned_k, poisoned_v, short)
+    torch.cuda.synchronize()
+    assert torch.equal(a, c)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,hkv,d", [(2, 1000, 32, 8, 128),
+                                         (1, 333, 8, 1, 64),
+                                         (2, 70, 4, 4, 16),
+                                         (1, 129, 14, 2, 8)])
+def test_flash_attention_kernel_matches_twin(card, b, s, h, hkv, d, dtype):
+    """Kernel 7 vs its twin and the ``-inf``-masked oracle at unpadded S,
+    G in {1, 4, 7, 8}."""
+    from repro_torch.kernels import flash_attention as F
+    from repro_torch.kernels import ref as R
+    q = _normal(card, (b, s, h, d), s + 4, dtype)
+    k = _normal(card, (b, s, hkv, d), s + 5, dtype)
+    v = _normal(card, (b, s, hkv, d), s + 6, dtype)
+    got = F.flash_attention_cuda(q, k, v)
+    want = F.flash_attention_twin(q, k, v)
+    oracle = R.flash_attention_ref(q, k, v)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (b, s, h, d)
+    torch.testing.assert_close(got.float(), want.float(), **_ATTN_TOL[dtype])
+    torch.testing.assert_close(got.float(), oracle.float(),
+                               **_ATTN_TOL[dtype])
+
+
+@pytest.mark.gpu
+def test_attention_kernels_refuse_what_they_do_not_take(card):
+    from repro_torch.kernels import decode_attention as A
+    from repro_torch.kernels import flash_attention as F
+    q = torch.zeros((2, 4, 64), device=card)
+    k = torch.zeros((2, 10, 2, 64), device=card)
+    length = torch.full((2,), 5, dtype=torch.int32, device=card)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        A.decode_attention_cuda(q.half(), k.half(), k.half(), length)
+    with pytest.raises(ValueError, match="contiguous"):
+        A.decode_attention_cuda(q, k.transpose(0, 1).contiguous()
+                                .transpose(0, 1), k, length)
+    with pytest.raises(ValueError, match="head_dim"):
+        A.decode_attention_cuda(q[..., :32].contiguous(),
+                                k[..., :32].contiguous(),
+                                k[..., :32].contiguous(), length)
+    with pytest.raises(ValueError, match="int32"):
+        A.decode_attention_cuda(q, k, k, length.long())
+    with pytest.raises(ValueError, match="CUDA"):
+        A.decode_attention_cuda(q.cpu(), k.cpu(), k.cpu(), length.cpu())
+    qf = torch.zeros((1, 10, 4, 96), device=card)
+    kf = torch.zeros((1, 10, 2, 96), device=card)
+    with pytest.raises(ValueError, match="head_dim"):
+        F.flash_attention_cuda(qf, kf, kf)
+    with pytest.raises(ValueError, match="bfloat16"):
+        F.flash_attention_cuda(qf[..., :64].contiguous().bfloat16(),
+                               kf[..., :64].contiguous(),
+                               kf[..., :64].contiguous())
+    # groups too large for one block: the launchers refuse them, the
+    # wrappers raise, and the next launch is unaffected
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        F.flash_attention_cuda(torch.zeros((1, 4, 65, 8), device=card),
+                               torch.zeros((1, 4, 1, 8), device=card),
+                               torch.zeros((1, 4, 1, 8), device=card))
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        A.decode_attention_cuda(torch.zeros((1, 130, 128), device=card),
+                                torch.zeros((1, 8, 1, 128), device=card),
+                                torch.zeros((1, 8, 1, 128), device=card),
+                                length[:1])
+    out = A.decode_attention_cuda(q, k, k, length)
+    torch.testing.assert_close(out, A.decode_attention_twin(q, k, k, length))

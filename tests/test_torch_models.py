@@ -1,0 +1,262 @@
+"""The port's dense LM stack against the reference: layers, the parameter
+converter, and forward / prefill / decode on the smoke configs of the
+five dense variants (qkv bias; tied embeddings with multipliers; MQA; GQA
+with G=4; embedding inputs).
+
+Weights come from the reference's ``init_params(cfg, PRNGKey(0))``,
+converted by :func:`repro_torch.models.convert.params_from_reference`;
+other inputs from ``numpy.random.default_rng``.  The smoke configs compute
+in f32, where the port's attention kernels (twins on the CPU) and the
+reference's jnp attention differ only by rounding: logits are held at
+rtol = atol = 1e-4 (observed differences ~4e-6 on logits of magnitude ~4).
+Within the port, decode against the teacher-forced forward at 1e-4 too
+(the reference holds its own at 2e-2).  Layers at 1e-6 (norm, RoPE
+frequencies) to 1e-5 (RoPE, SwiGLU; SwiGLU atol 1e-4 on outputs up to
+~90).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from repro import configs as jconfigs
+from repro.models import attention as jattn
+from repro.models import layers as jlayers
+from repro.models import transformer as jtf
+from repro_torch import configs as tconfigs
+from repro_torch.models import attention as tattn
+from repro_torch.models import layers as tlayers
+from repro_torch.models import transformer as ttf
+from repro_torch.models.convert import param_count, params_from_reference
+
+DENSE_VARIANTS = ["qwen1.5-4b", "minicpm-2b", "granite-34b",
+                  "chameleon-34b", "musicgen-medium"]
+TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+def _models(arch):
+    jcfg = jconfigs.get_smoke_config(arch)
+    tcfg = tconfigs.get_smoke_config(arch)
+    jparams = jtf.init_params(jcfg, jax.random.PRNGKey(0))
+    tparams = params_from_reference(jax.tree.map(np.asarray, jparams),
+                                    device="cpu")
+    return jcfg, jparams, tcfg, tparams
+
+
+def _inputs(cfg, b, t, seed):
+    """Token ids (int32 for JAX, int64 for torch) or frame embeddings."""
+    rng = np.random.default_rng(seed)
+    if cfg.input_kind == "embeddings":
+        x = rng.standard_normal((b, t, cfg.d_model)).astype(np.float32)
+        return jnp.asarray(x), torch.from_numpy(x)
+    ids = rng.integers(0, cfg.vocab_size, (b, t)).astype(np.int32)
+    return jnp.asarray(ids), torch.from_numpy(ids.astype(np.int64))
+
+
+def _close(got, want, **tol):
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               **(tol or TOL))
+
+
+# ---------------------------------------------------------------------------
+# layers and configs
+# ---------------------------------------------------------------------------
+
+def test_layers_match_reference():
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((2, 5, 3, 16)).astype(np.float32)
+    w = rng.standard_normal(16).astype(np.float32)
+    tx, tw = torch.from_numpy(x), torch.from_numpy(w)
+    _close(tlayers.rms_norm(tx, tw, 1e-5),
+           jlayers.rms_norm(jnp.asarray(x), jnp.asarray(w), 1e-5), rtol=1e-6,
+           atol=1e-6)
+    _close(tlayers.rope_frequencies(16, 10_000.0),
+           jlayers.rope_frequencies(16, 10_000.0), rtol=1e-6, atol=0)
+    pos = np.asarray([[0, 3, 7, 100, 4095]])
+    _close(tlayers.apply_rope(tx, torch.from_numpy(pos), 1e6),
+           jlayers.apply_rope(jnp.asarray(x), jnp.asarray(pos), 1e6),
+           rtol=1e-5, atol=1e-5)
+    per_slot = np.asarray([[17], [4100]])        # (B, 1), as decode passes
+    _close(tlayers.apply_rope(tx[:, :1], torch.from_numpy(per_slot), 1e4),
+           jlayers.apply_rope(jnp.asarray(x[:, :1]), jnp.asarray(per_slot),
+                              1e4), rtol=1e-5, atol=1e-5)
+    g, u = (rng.standard_normal((16, 24)).astype(np.float32) for _ in "gu")
+    dw = rng.standard_normal((24, 16)).astype(np.float32)
+    _close(tlayers.swiglu(tx, *map(torch.from_numpy, (g, u, dw))),
+           jlayers.swiglu(jnp.asarray(x), *map(jnp.asarray, (g, u, dw))),
+           rtol=1e-5, atol=1e-4)         # outputs up to ~90
+
+
+def test_config_modules_are_the_references():
+    for arch in jconfigs.all_archs():
+        for get in ("get_config", "get_smoke_config"):
+            jc = getattr(jconfigs, get)(arch)
+            tc = getattr(tconfigs, get)(arch)
+            assert dataclasses.asdict(jc) == dataclasses.asdict(tc)
+            assert tc.param_count() == jc.param_count()
+    assert tconfigs.get_config("qwen1.5-4b").cdtype() == torch.bfloat16
+    assert tconfigs.get_config("qwen1.5-4b").pdtype() == torch.float32
+
+
+@pytest.mark.parametrize("arch", DENSE_VARIANTS + ["yi-34b"])
+def test_converted_params_keep_param_count(arch):
+    jcfg, jparams, tcfg, tparams = _models(arch)
+    assert len(tparams["blocks"]) == tcfg.num_layers
+    assert param_count(tparams) == tcfg.param_count()
+    own = ttf.init_params(tcfg, torch.Generator().manual_seed(0))
+    assert param_count(own) == tcfg.param_count()
+    flat = jax.tree_util.tree_flatten_with_path(jparams)[0]
+    for path, leaf in flat:
+        keys = [p.key for p in path]
+        node = tparams["blocks"][1] if keys[0] == "blocks" else tparams
+        for key in keys[1:] if keys[0] == "blocks" else keys:
+            node = node[key]
+        want = np.asarray(leaf)[1] if keys[0] == "blocks" else leaf
+        np.testing.assert_array_equal(node.numpy(), np.asarray(want))
+
+
+# ---------------------------------------------------------------------------
+# forward, prefill, decode against the reference
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", DENSE_VARIANTS)
+def test_forward_prefill_decode_match_reference(arch):
+    jcfg, jparams, tcfg, tparams = _models(arch)
+    b, t = 2, 12
+    jx, tx = _inputs(jcfg, b, t, seed=1)
+    jlogits, _ = jtf.forward_logits(jparams, jcfg, jx)
+    tlogits, _ = ttf.forward_logits(tparams, tcfg, tx)
+    _close(tlogits, jlogits)
+
+    jlast, jcache = jtf.prefill(jparams, jcfg, jx[:, :t - 3], max_len=t + 4)
+    tlast, tcache = ttf.prefill(tparams, tcfg, tx[:, :t - 3], max_len=t + 4)
+    assert tlast.shape == (b, 1, tcfg.vocab_size)
+    _close(tlast, jlast)
+    _close(tcache.kv_k, jcache.kv_k)
+    _close(tcache.kv_v, jcache.kv_v)
+    assert int(tcache.position) == int(jcache.position) == t - 3
+    for step in range(t - 3, t):
+        jstep, jcache = jtf.decode_step(jparams, jcfg, jx[:, step:step + 1],
+                                        jcache)
+        tstep, tcache = ttf.decode_step(tparams, tcfg, tx[:, step:step + 1],
+                                        tcache)
+        _close(tstep, jstep)
+        _close(tstep[:, 0], tlogits[:, step])
+    _close(tcache.kv_k, jcache.kv_k)
+
+
+def test_decode_attention_step_matches_reference():
+    """One layer's decode attention from ``init_kv_cache`` (GQA, G=4),
+    step by step, against the reference's: outputs, cache rows, lengths."""
+    jcfg = jconfigs.get_smoke_config("yi-34b")
+    tcfg = tconfigs.get_smoke_config("yi-34b")
+    jp = jattn.init_attention(jax.random.PRNGKey(0), jcfg)
+    tp = {k: torch.from_numpy(np.array(v)) for k, v in jp.items()}
+    b, s = 2, 8
+    jcache = jattn.init_kv_cache(jcfg, b, s, jnp.float32)
+    tcache = tattn.init_kv_cache(tcfg, b, s, torch.float32, device="cpu")
+    rng = np.random.default_rng(8)
+    for _ in range(4):
+        x = rng.standard_normal((b, 1, jcfg.d_model)).astype(np.float32)
+        jout, jcache = jattn.decode_attention_step(jp, jcfg, jnp.asarray(x),
+                                                   jcache)
+        tout, tcache = tattn.decode_attention_step(tp, tcfg,
+                                                   torch.from_numpy(x),
+                                                   tcache)
+        _close(tout, jout)
+    assert int(tcache.length) == int(jcache.length) == 4
+    _close(tcache.k, jcache.k)
+    _close(tcache.v, jcache.v)
+
+
+def test_decode_matches_teacher_forced_forward():
+    """Tokens one by one through decode_step reproduce the full causal
+    forward at every position (GQA, G=4)."""
+    _, _, cfg, params = _models("chameleon-34b")
+    b, t = 2, 12
+    _, tokens = _inputs(cfg, b, t, seed=3)
+    full, _ = ttf.forward_logits(params, cfg, tokens)
+    cache = ttf.init_cache(cfg, b, max_len=t + 4, dtype=torch.float32,
+                           device="cpu")
+    got = []
+    for step in range(t):
+        logits, cache = ttf.decode_step(params, cfg,
+                                        tokens[:, step:step + 1], cache)
+        got.append(logits[:, 0])
+    _close(torch.stack(got, dim=1), full.numpy())
+
+
+def test_prefill_then_decode_continues_forward():
+    _, _, cfg, params = _models("chameleon-34b")
+    b, t = 2, 10
+    _, tokens = _inputs(cfg, b, t + 1, seed=5)
+    last, cache = ttf.prefill(params, cfg, tokens[:, :t], max_len=t + 4)
+    full, _ = ttf.forward_logits(params, cfg, tokens)
+    _close(last[:, 0], full[:, t - 1].numpy())
+    step, _ = ttf.decode_step(params, cfg, tokens[:, t:t + 1], cache)
+    _close(step[:, 0], full[:, t].numpy())
+
+
+def test_plain_path_equals_kernel_path_on_the_cpu():
+    """On CPU tensors the kernel adapters take the twins, so
+    ``attention="plain"`` gives the same bits."""
+    _, _, cfg, params = _models("qwen1.5-4b")
+    _, tokens = _inputs(cfg, 1, 9, seed=6)
+    a, ca = ttf.prefill(params, cfg, tokens, max_len=16)
+    p, cp = ttf.prefill(params, cfg, tokens, max_len=16, attention="plain")
+    assert torch.equal(a, p) and torch.equal(ca.kv_k, cp.kv_k)
+    nxt = tokens[:, :1]
+    a, _ = ttf.decode_step(params, cfg, nxt, ca)
+    p, _ = ttf.decode_step(params, cfg, nxt, cp, attention="plain")
+    assert torch.equal(a, p)
+    with pytest.raises(ValueError, match="attention"):
+        ttf.decode_step(params, cfg, nxt, cp, attention="fast")
+
+
+def test_cast_params_casts_matrices_and_keeps_norms():
+    _, _, cfg, params = _models("qwen1.5-4b")
+    cast = ttf.cast_params(params, torch.bfloat16)
+    assert cast["embed"].dtype == torch.bfloat16
+    assert cast["blocks"][0]["attn"]["bq"].dtype == torch.bfloat16
+    assert cast["blocks"][0]["mlp"]["down"].dtype == torch.bfloat16
+    assert cast["final_norm"] is params["final_norm"]
+    assert cast["blocks"][1]["attn_norm"] is params["blocks"][1]["attn_norm"]
+    same = ttf.cast_params(params, torch.float32)
+    assert same["lm_head"] is params["lm_head"]
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "mamba2-1.3b",
+                                  "zamba2-7b", "qwen3-moe-235b-a22b"])
+def test_other_families_are_not_ported_yet(arch):
+    cfg = tconfigs.get_smoke_config(arch)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        ttf.init_params(cfg, torch.Generator().manual_seed(0))
+    with pytest.raises(NotImplementedError, match="not ported"):
+        ttf.init_cache(cfg, 1, 8, device="cpu")
+
+
+@pytest.mark.parametrize("build", ["init_cache", "init_kv_cache",
+                                   "params_from_reference"])
+def test_builders_default_to_the_card(build, monkeypatch):
+    """With no ``device``, the cache and parameter builders place their
+    tensors on the package's default device (the card), through
+    ``core.problem.resolve_device``; ``meta`` stands in for it here."""
+    from repro_torch.core import problem
+    monkeypatch.setattr(problem, "DEFAULT_DEVICE", "meta")
+    cfg = tconfigs.get_smoke_config("qwen1.5-4b")
+    if build == "init_cache":
+        tensors = list(ttf.init_cache(cfg, 2, 8)[:2])
+    elif build == "init_kv_cache":
+        tensors = list(tattn.init_kv_cache(cfg, 2, 8))
+    else:
+        jparams = jtf.init_params(jconfigs.get_smoke_config("qwen1.5-4b"),
+                                  jax.random.PRNGKey(0))
+        params = params_from_reference(jax.tree.map(np.asarray, jparams))
+        tensors = [params["embed"], params["blocks"][0]["attn"]["wq"]]
+    assert all(t.device.type == "meta" for t in tensors)
