@@ -2,10 +2,10 @@
 holds each against its plain PyTorch twin, drives the dense partition game
 end to end at N=16384, K=16, the sparse sweep runtime at the reference's
 million-node instance (N=10^6, E=9,002,624, K=8), the batched fleets
-(32 dense problems of N=4096, K=16; 4 sparse ones of N=65536, K=8) and
-the dense LM serving path (qwen1.5-4b at full width, 48 requests through
-the continuous-batching engine), times every kernel, and checks the
-results.
+(32 dense problems of N=4096, K=16; 4 sparse ones of N=65536, K=8), the
+dense LM serving path (qwen1.5-4b at full width, 48 requests through the
+continuous-batching engine) and the SSM serving path (mamba2-1.3b at full
+width, the same traffic), times every kernel, and checks the results.
 
   python3 chip_smoke.py          # needs one CUDA card and nvcc
 
@@ -77,7 +77,26 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      2 slots, max_len 1024, prompts of 500 and 900 tokens, 16 new tokens:
      equal tokens, logits within a stated tolerance;
  16. attention times — kernels 6 and 7 at the serving shapes beside their
-     bound, their twins and ``scaled_dot_product_attention``.
+     bound, their twins and ``scaled_dot_product_attention``;
+ 17. kernel 8 (the SSD scan) vs its twin on the card — (B, L, H, P, N) =
+     (1, 3072, 64, 64, 128) with bf16 x/bm/cm (the serving shape), (2,
+     1001, ...) in f32 and (2, 777, ...) from an initial state, with the
+     Mamba2 initialisation's decays, within a tolerance relative to the
+     largest value; refused launches raise, and the next one is clean;
+ 18. full-width SSM serving — mamba2-1.3b's published config (48 layers,
+     d_model 2048, 64 heads of 64, state 128, chunk 256, vocab 50280,
+     tied embeddings, f32 parameters, bf16 compute), weights from
+     ``init_params`` with a seeded generator on the card, phase 14's
+     ``ServeConfig`` and traffic: every request complete, every logit
+     finite, kernel 8 launched 48 x prefills times, no twin; prefill
+     tokens/s, ms per decode step, generated tok/s, and a profiled window
+     of 8 decode steps;
+ 19. SSM kernel path vs plain path at full width — f32 compute, the same
+     weights, prompts of 500 and 900 tokens: equal tokens, logits within a
+     stated tolerance; one bf16 prefill of 3072 tokens and one decode step
+     on both paths, no further apart than bf16 compute moves the plain
+     path from f32 compute on the same input; kernel 8's times at the
+     serving shape beside its bound and its twin.
 
 Each path's launch counts are set to 0 just before it and read just after.
 The line before the last two is the kernels' JSON record; then the card's
@@ -153,6 +172,21 @@ ATTN_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (1e-2, 1e-3)}
 # decode step (bf16 rounding of the attention output, through 40 layers)
 F32_LOGIT_TOL = 1e-3
 BF16_STEP_TOL = 5e-2
+
+# the SSM serving path: mamba2-1.3b's published config unchanged, phase
+# 14's traffic
+SSM_ARCH = "mamba2-1.3b"
+SSD_CHUNK = 256             # the config's ssm_chunk: the twin's chunk
+# (B, L, H, P, N, dtype of x/bm/cm, initial state) of phase 17; the first
+# is the serving shape (the longest prompt at mamba2-1.3b's widths)
+SSD_SHAPES = ((1, 3072, 64, 64, 128, torch.bfloat16, False),
+              (2, 1001, 64, 64, 128, torch.float32, False),
+              (2, 777, 64, 64, 128, torch.bfloat16, True))
+# kernel 8 vs twin: max |diff| <= SSD_TOL * max(1, max |want|), for y and
+# the final state each -- the reference's tolerance between two chunkings
+# of the scan (tests/test_kernels.py), against the largest value; bf16
+# inputs are widened exactly on both sides, so they need no more
+SSD_TOL = 3e-4
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s, f32 FLOP/s
 # outside the tensor cores, dense bf16 FLOP/s on the tensor cores
@@ -1281,19 +1315,16 @@ class FiniteGreedy:
         return greedy(logits)
 
 
-def phase_serving(A, F, card):
-    """Phase 14: qwen1.5-4b at full width through the port's
-    ServingEngine, kernels 6-7 on every layer, no twin."""
-    from repro_torch import configs
+def _serve_full_width(cfg, mods, card):
+    """Phases 14 and 18: ``cfg`` at full width, random weights from a
+    seeded generator on the card, serving the 48 requests of
+    ``_request_prompts`` through the port's ServingEngine with the launch
+    counts of ``mods`` set to 0 just before the run.  Checks that every
+    request has its tokens and every logit was finite; returns (params,
+    engine, stats, launches, twin calls)."""
     from repro_torch.models import init_params
     from repro_torch.models.convert import param_count
     from repro_torch.serving import Request, ServeConfig, ServingEngine
-    cfg = configs.get_config(LM_ARCH)
-    log(f"  {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
-        f"{cfg.num_heads} heads (kv {cfg.num_kv_heads}) x {cfg.head_dim}, "
-        f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, qkv_bias "
-        f"{cfg.qkv_bias}, params {cfg.param_dtype}, compute "
-        f"{cfg.compute_dtype}")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(
@@ -1312,7 +1343,7 @@ def phase_serving(A, F, card):
     engine = ServingEngine(cfg, params, serve, sampler=sampler)
     torch.cuda.synchronize()
     log(f"  engine: {serve}, weights cast to {cfg.compute_dtype} once and "
-        f"KV cache allocated in {time.perf_counter() - t0:.2f} s; device memory "
+        f"cache allocated in {time.perf_counter() - t0:.2f} s; device memory "
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
     prompts = _request_prompts(cfg.vocab_size)
     for uid, prompt in enumerate(prompts):
@@ -1322,12 +1353,12 @@ def phase_serving(A, F, card):
         f"(sum {sum(p.size for p in prompts)}) from default_rng({SEED}), "
         f"{SERVE_NEW} new tokens each, greedy")
 
-    for mod in (A, F):
+    for mod in mods:
         mod.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     stats = engine.run()
-    launches = {**A.launches, **F.launches}
-    twins = {**A.twin_calls, **F.twin_calls}
+    launches = {k: v for mod in mods for k, v in mod.launches.items()}
+    twins = {k: v for mod in mods for k, v in mod.twin_calls.items()}
     steps = stats["decode_steps"]
     log(f"  served: {stats['requests']} requests, {stats['prefills']} "
         f"prefills, {steps} decode steps, {stats['generated_tokens']} "
@@ -1347,19 +1378,14 @@ def phase_serving(A, F, card):
         fail("a request did not produce its 64 tokens")
     if not bool(sampler.finite):
         fail("non-finite logits while serving")
-    want = {"flash_attention": cfg.num_layers * SERVE_REQUESTS,
-            "decode_attention": cfg.num_layers * steps}
-    for name, n in want.items():
-        if launches[name] != n:
-            fail(f"kernel {name} launched {launches[name]} times, want {n}")
-    if any(twins.values()):
-        fail(f"a twin ran on the serving path: {twins}")
-    log(f"  checks: every request has {SERVE_NEW} tokens, every logit "
-        f"finite, kernel 7 launched {cfg.num_layers} x {SERVE_REQUESTS} and "
-        f"kernel 6 {cfg.num_layers} x {steps} times, no twin ran")
+    return params, engine, stats, launches, twins
 
-    # a profiled window of decode steps at full occupancy: every slot gets
-    # a request that continues from the slot's cache as the run left it
+
+def _profile_decode(engine):
+    """A profiled window of decode steps at full occupancy: every slot
+    gets a request that continues from the slot's cache as the run left
+    it."""
+    from repro_torch.serving import Request
     for slot in range(SERVE_SLOTS):
         req = Request(10_000 + slot, np.zeros(1, np.int32),
                       max_new_tokens=PROFILE_STEPS + 1)
@@ -1379,6 +1405,32 @@ def phase_serving(A, F, card):
     for ev in top:
         log(f"    {ev.key[:60]:60s} {ev.count:6d} x "
             f"{ev.self_device_time_total / max(ev.count, 1):8.2f} us")
+
+
+def phase_serving(A, F, card):
+    """Phase 14: qwen1.5-4b at full width through the port's
+    ServingEngine, kernels 6-7 on every layer, no twin."""
+    from repro_torch import configs
+    cfg = configs.get_config(LM_ARCH)
+    log(f"  {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.num_heads} heads (kv {cfg.num_kv_heads}) x {cfg.head_dim}, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, qkv_bias "
+        f"{cfg.qkv_bias}, params {cfg.param_dtype}, compute "
+        f"{cfg.compute_dtype}")
+    params, engine, stats, launches, twins = _serve_full_width(
+        cfg, (A, F), card)
+    steps = stats["decode_steps"]
+    want = {"flash_attention": cfg.num_layers * SERVE_REQUESTS,
+            "decode_attention": cfg.num_layers * steps}
+    for name, n in want.items():
+        if launches[name] != n:
+            fail(f"kernel {name} launched {launches[name]} times, want {n}")
+    if any(twins.values()):
+        fail(f"a twin ran on the serving path: {twins}")
+    log(f"  checks: every request has {SERVE_NEW} tokens, every logit "
+        f"finite, kernel 7 launched {cfg.num_layers} x {SERVE_REQUESTS} and "
+        f"kernel 6 {cfg.num_layers} x {steps} times, no twin ran")
+    _profile_decode(engine)
     return params, engine, {"stats": stats, "launches": launches}
 
 
@@ -1388,10 +1440,7 @@ def _max_rel(a, b) -> float:
 
 def phase_paths(params, engine):
     """Phase 15: the kernel path against the plain path at full width."""
-    import dataclasses
-
     from repro_torch.models.transformer import decode_step
-    from repro_torch.serving import Request, ServeConfig, ServingEngine
     from repro_torch.serving.sampler import greedy
 
     cfg = engine.cfg
@@ -1415,7 +1464,20 @@ def phase_paths(params, engine):
         fail("the bf16 decode step differs between the kernel and plain "
              "paths beyond tolerance")
 
-    # (b) f32 compute, the same weights, two requests on each path
+    rel32 = _f32_parity(params, cfg, "attention")
+    return {"bf16_rel": rel, "bf16_argmax_equal": agree, "f32_rel": rel32}
+
+
+def _f32_parity(params, cfg, switch: str) -> float:
+    """Phases 15 and 19: f32 compute, the same weights, two requests
+    through a 2-slot engine on the kernel path and on the plain path
+    (``switch`` names the engine's argument that selects it): tokens
+    equal, every sampled logit within ``F32_LOGIT_TOL``."""
+    import dataclasses
+
+    from repro_torch.serving import Request, ServeConfig, ServingEngine
+    from repro_torch.serving.sampler import greedy
+
     cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
     rng = np.random.default_rng(SEED + 1)
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
@@ -1430,7 +1492,7 @@ def phase_paths(params, engine):
 
         eng = ServingEngine(cfg32, params, ServeConfig(
             max_batch=2, max_len=PARITY_MAX_LEN, cache_dtype="float32"),
-            sampler=sampler, attention=path)
+            sampler=sampler, **{switch: path})
         for uid, p in enumerate(prompts):
             eng.submit(Request(uid, p, max_new_tokens=PARITY_NEW))
         t0 = time.perf_counter()
@@ -1451,7 +1513,7 @@ def phase_paths(params, engine):
     if len(logit_k) != len(logit_p) or not rel32 <= F32_LOGIT_TOL:
         fail("f32 logits differ between the kernel and plain paths beyond "
              "tolerance")
-    return {"bf16_rel": rel, "bf16_argmax_equal": agree, "f32_rel": rel32}
+    return rel32
 
 
 def _sdpa():
@@ -1537,6 +1599,193 @@ def phase_attention_times(A, F, engine, card):
             f"[{card}]")
         out.append(rec)
     return out
+
+
+def _ssd_inputs(b, seq, h, p, n, dtype, seed):
+    """Kernel 8's inputs with the Mamba2 initialisation's decays: a in
+    [-16, -1], dt in [1e-3, 0.1], so dt * a reaches -1.6 a step and e^cum
+    underflows inside a chunk."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((b, seq, h, p), generator=g, device="cuda").to(dtype)
+    bm = torch.randn((b, seq, n), generator=g, device="cuda").to(dtype)
+    cm = torch.randn((b, seq, n), generator=g, device="cuda").to(dtype)
+    dt = 1e-3 + (0.1 - 1e-3) * torch.rand((b, seq, h), generator=g,
+                                          device="cuda")
+    a = -(1.0 + 15.0 * torch.rand((h,), generator=g, device="cuda"))
+    return x, dt, a, bm, cm
+
+
+def _ssd_err(got, want, label) -> float:
+    """max |got - want| after checking it against SSD_TOL * max(1, max
+    |want|)."""
+    bound = SSD_TOL * max(1.0, float(want.abs().max()))
+    diff = float((got - want).abs().max())
+    if not bool(torch.isfinite(got).all()) or not diff <= bound:
+        fail(f"{label} vs twin beyond tolerance: max |diff| {diff}, bound "
+             f"{bound}")
+    return diff
+
+
+def phase_ssd_kernel(S8):
+    """Phase 17: kernel 8 against its twin on the card."""
+    err = 0.0
+    for i, (b, seq, h, p, n, dtype, with_state) in enumerate(SSD_SHAPES):
+        x, dt, a, bm, cm = _ssd_inputs(b, seq, h, p, n, dtype, 17 + i)
+        init = torch.randn((b, h, p, n), device="cuda",
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(i)) if with_state else None
+        got = S8.ssd_scan_cuda(x, dt, a, bm, cm, init)
+        want = S8.ssd_scan_twin(x, dt, a, bm, cm, SSD_CHUNK, init)
+        torch.cuda.synchronize()
+        shape = (b, seq, h, p, n)
+        ey = _ssd_err(got[0], want[0], f"kernel 8 y {shape}")
+        es = _ssd_err(got[1], want[1], f"kernel 8 state {shape}")
+        err = max(err, ey, es)
+        log(f"  kernel 8 (B, L, H, P, N)={shape} {str(dtype)[6:]} inputs"
+            f"{', from an initial state' if with_state else ''}: y max "
+            f"|diff| {ey:.3e} (max |y| {float(want[0].abs().max()):.3f}), "
+            f"state max |diff| {es:.3e} (max |state| "
+            f"{float(want[1].abs().max()):.3f})")
+        del x, dt, a, bm, cm, got, want
+    log(f"  tolerance: max |diff| <= {SSD_TOL} * max(1, max |want|), y and "
+        f"state each")
+    x, dt, a, bm, cm = _ssd_inputs(1, 70, 2, 16, 8, torch.float32, 0)
+    big = torch.zeros((1, 70, 512), device="cuda")
+    refusals = {
+        "a float16 input": lambda: S8.ssd_scan_cuda(
+            x.half(), dt, a, bm.half(), cm.half()),
+        "a bf16 dt": lambda: S8.ssd_scan_cuda(x, dt.bfloat16(), a, bm, cm),
+        "a non-contiguous x": lambda: S8.ssd_scan_cuda(
+            x.transpose(1, 2).contiguous().transpose(1, 2), dt, a, bm, cm),
+        "N = 512, past a block's shared memory (launcher)": lambda:
+            S8.ssd_scan_cuda(x, dt, a, big, big),
+    }
+    for what, call in refusals.items():
+        try:
+            call()
+        except (ValueError, RuntimeError) as exc:
+            log(f"  refused {what}: {exc}")
+        else:
+            fail(f"kernel 8 launched on {what}")
+    # a refused launch leaves no error behind for the next one
+    got = S8.ssd_scan_cuda(x, dt, a, bm, cm)
+    want = S8.ssd_scan_twin(x, dt, a, bm, cm, SSD_CHUNK)
+    _ssd_err(got[0], want[0], "kernel 8 after a refused launch")
+    return err
+
+
+def phase_ssm_serving(S8, card):
+    """Phase 18: mamba2-1.3b at full width through the port's
+    ServingEngine, kernel 8 on every prefill layer, no twin."""
+    from repro_torch import configs
+    cfg = configs.get_config(SSM_ARCH)
+    log(f"  {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"d_inner {cfg.d_inner}, {cfg.ssm_heads} heads x "
+        f"{cfg.ssm_head_dim}, state {cfg.ssm_state}, conv {cfg.ssm_conv}, "
+        f"chunk {cfg.ssm_chunk}, vocab {cfg.vocab_size}, tied embeddings "
+        f"{cfg.tie_embeddings}, params {cfg.param_dtype}, compute "
+        f"{cfg.compute_dtype}")
+    params, engine, stats, launches, twins = _serve_full_width(
+        cfg, (S8,), card)
+    prefills = stats["prefills"]
+    want = cfg.num_layers * prefills
+    if prefills != SERVE_REQUESTS or launches["ssd_scan"] != want:
+        fail(f"kernel 8 launched {launches['ssd_scan']} times over "
+             f"{prefills} prefills, want {cfg.num_layers} x "
+             f"{SERVE_REQUESTS}")
+    if any(twins.values()):
+        fail(f"a twin ran on the serving path: {twins}")
+    log(f"  checks: every request has {SERVE_NEW} tokens, every logit "
+        f"finite, kernel 8 launched {cfg.num_layers} x {prefills} = {want} "
+        f"times, twin calls {twins['ssd_scan_twin']}")
+    _profile_decode(engine)
+    return params, engine, {"stats": stats, "launches": launches}
+
+
+def phase_ssm_paths(S8, params, engine, card):
+    """Phase 19: the SSM kernel path against the plain path at full
+    width, then kernel 8's times at the serving shape."""
+    import dataclasses
+
+    from repro_torch.models.transformer import decode_step, prefill
+    from repro_torch.serving.sampler import greedy
+
+    cfg = engine.cfg
+    _f32_parity(params, cfg, "ssm")
+    # one bf16 prefill of a longest-prompt request and one decode step on
+    # both paths, on phase 18's cast weights, and on the plain path at f32
+    # compute on the uncast weights; all decode the token the kernel path
+    # chose.  The tolerance is the bf16 floor of this input: the kernel
+    # path's logits may lie no further from the plain path's than bf16
+    # compute moves the plain path's from f32 compute, for the prefill
+    # and for the step each (the kernel and its twin differ by f32
+    # rounding, which at bf16 flips a few roundings of the scan's output)
+    rng = np.random.default_rng(SEED + 2)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                          SERVE_PROMPT[1]).astype(np.int64),
+                             device="cuda")[None]
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    out, nxt = {}, None
+    for run, weights, c, path in (("kernel", engine.params, cfg, "kernel"),
+                                  ("plain", engine.params, cfg, "plain"),
+                                  ("plain f32", params, cfg32, "plain")):
+        first, cache = prefill(weights, c, tokens, SERVE_MAX_LEN, ssm=path)
+        if nxt is None:
+            nxt = greedy(first).long().reshape(1, 1)
+        step, _ = decode_step(weights, c, nxt, cache)
+        out[run] = (first[:, 0].float(), step[:, 0].float())
+        del cache
+    rel = [_max_rel(k, p) for k, p in zip(out["kernel"], out["plain"])]
+    floor = [_max_rel(p, f) for p, f in zip(out["plain"], out["plain f32"])]
+    agree = [bool(greedy(k) == greedy(p))
+             for k, p in zip(out["kernel"], out["plain"])]
+    log(f"  bf16 prefill of {SERVE_PROMPT[1]} tokens, then one decode step: "
+        f"kernel vs plain path max |diff| / max(1, max|logit|) = "
+        f"{rel[0]:.3e}, {rel[1]:.3e}; bf16 floor (plain path, bf16 vs f32 "
+        f"compute) {floor[0]:.3e}, {floor[1]:.3e}; argmax equal (prefill, "
+        f"step): {agree}")
+    if not all(r <= f for r, f in zip(rel, floor)):
+        fail("the bf16 prefill or step differs between the kernel and "
+             "plain paths by more than bf16 compute moves the plain path")
+
+    b, seq, h, p, n, dtype, _ = SSD_SHAPES[0]
+    x, dt, a, bm, cm = _ssd_inputs(b, seq, h, p, n, dtype, 19)
+
+    def k8_call():
+        S8.ssd_scan_cuda(x, dt, a, bm, cm)
+
+    def p8_call():
+        S8.ssd_scan_twin(x, dt, a, bm, cm, SSD_CHUNK)
+
+    calls = {"k8": (k8_call, 20), "p8": (p8_call, 5)}
+    t = {name: [] for name in calls}
+    for order in (list(calls), list(reversed(calls))):
+        for name in order:
+            fn, iters = calls[name]
+            t[name].append(cuda_ms(fn, iters, warmup=2))
+    ms = {name: float(np.mean(v)) for name, v in t.items()}
+    dev = kernel_device_us({"ssd_scan": (k8_call, 10)})["ssd_scan"]
+    elt = torch.finfo(dtype).bits // 8
+    byt = (elt * (b * seq * h * p + 2 * b * seq * n)     # x, bm, cm
+           + 4 * (b * seq * h + h)                       # dt, a
+           + 4 * (b * seq * h * p + b * h * p * n))      # y, final state
+    flops = 4 * b * seq * h * p * n   # increment and read-out, per state
+    t_bytes = 1e3 * byt / PEAK_BYTES_S
+    t_ops = 1e3 * flops / PEAK_F32_FLOPS
+    rec = {"name": "ssd_scan", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+           "replaces": "src/repro/kernels/ssd_scan.py:81",
+           "ms": ms["k8"], "plain_ms": ms["p8"],
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "library_ms": None}
+    log(f"  ssd_scan at (B, L, H, P, N)=({b}, {seq}, {h}, {p}, {n}), "
+        f"{str(dtype)[6:]} x/bm/cm: kernel {ms['k8']:.5f} ms per call "
+        f"({'not measured' if dev is None else f'{dev:.2f} us'} on the "
+        f"device), twin {ms['p8']:.5f} ms, bound {rec['bound_ms']:.5f} ms "
+        f"({rec['bound_by']}; {byt / 1e6:.2f} MB, {flops / 1e9:.2f} "
+        f"GFLOP f32), library: none (no single PyTorch call) [{card}]")
+    return rec
 
 
 def main() -> int:
@@ -1661,6 +1910,21 @@ def main() -> int:
         rec["launches"] = serving["launches"][rec["name"]]
         rec["max_abs_err"] = err
     kernels += attn
+    del params, engine
+    torch.cuda.empty_cache()
+
+    from repro_torch.kernels import ssd_scan as S8
+    log("== phase 17: kernel 8 (SSD scan) vs its plain twin on the card")
+    err8 = phase_ssd_kernel(S8)
+    log(f"== phase 18: {SSM_ARCH} at full width through ServingEngine "
+        f"(kernel 8)")
+    params, engine, ssm_serving = phase_ssm_serving(S8, card)
+    log("== phase 19: SSM kernel path vs plain path at full width; kernel "
+        "8's times (CUDA events, serving shape)")
+    rec8 = phase_ssm_paths(S8, params, engine, card)
+    rec8["launches"] = ssm_serving["launches"]["ssd_scan"]
+    rec8["max_abs_err"] = err8
+    kernels.append(rec8)
     del params, engine
     log(f"  total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -59,6 +59,11 @@ SIGNATURES = {
         # q, k, v, out, B, S, H, Hkv, D, dtype, stream
         "flash_attention": [_F] * 4 + [_I] * 6 + [_F],
     },
+    "ssd_scan": {
+        # x, dt, a, bm, cm, init_state, y, final_state, B, L, H, P, N,
+        # dtype, stream
+        "ssd_scan": [_F] * 8 + [_I] * 6 + [_F],
+    },
 }
 
 _libraries: dict[str, ctypes.CDLL] = {}

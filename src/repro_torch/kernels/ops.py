@@ -5,8 +5,9 @@ hand-written kernel (which raises on what it does not take — there is no
 fallback), CPU tensors to the kernel's plain PyTorch twin.  The launch
 counts live in :data:`repro_torch.kernels.dissatisfaction.launches`
 (kernels 1–3), :data:`repro_torch.kernels.edge_block.launches` (kernels
-4–5), :data:`repro_torch.kernels.decode_attention.launches` (kernel 6)
-and :data:`repro_torch.kernels.flash_attention.launches` (kernel 7).
+4–5), :data:`repro_torch.kernels.decode_attention.launches` (kernel 6),
+:data:`repro_torch.kernels.flash_attention.launches` (kernel 7) and
+:data:`repro_torch.kernels.ssd_scan.launches` (kernel 8).
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ from .edge_block import (dissatisfaction_from_edges_cuda,
                          sweep_candidates_from_edges_cuda,
                          sweep_candidates_from_edges_plain)
 from .flash_attention import flash_attention_cuda, flash_attention_twin
+from .ssd_scan import ssd_scan_cuda, ssd_scan_twin
 
 if TYPE_CHECKING:
     from ..core.refine import DissatFn, SweepCandidateFn
@@ -170,3 +172,14 @@ def flash_attention(q, k, v) -> torch.Tensor:
     tensors to its twin."""
     fn = flash_attention_cuda if _on_card(q) else flash_attention_twin
     return fn(q, k, v)
+
+
+def ssd_scan(x, dt, a, bm, cm, chunk: int, init_state=None):
+    """Mamba2 SSD scan: x (B, L, H, P), dt (B, L, H), a (H,), bm and cm
+    (B, L, N) -> (y (B, L, H, P) f32, final state (B, H, P, N) f32), from
+    ``init_state`` (zeros when None).  CUDA tensors go to kernel 8, which
+    walks its own sub-chunk length (``chunk`` does not change the
+    function), CPU tensors to its twin at ``chunk``."""
+    if _on_card(x):
+        return ssd_scan_cuda(x, dt, a, bm, cm, init_state)
+    return ssd_scan_twin(x, dt, a, bm, cm, chunk, init_state)

@@ -1,7 +1,8 @@
 """Plain PyTorch oracles (port of ``repro.kernels.ref``): the ground truth
 the kernels and their twins are held against, in the reference oracles'
-own op order — the cost matrix, and the two attention functions with an
-f32 softmax over the fully built logits and ``-inf`` masks."""
+own op order — the cost matrix, the two attention functions with an
+f32 softmax over the fully built logits and ``-inf`` masks, and the SSD
+scan as a per-token recurrence."""
 from __future__ import annotations
 
 import torch
@@ -75,3 +76,20 @@ def flash_attention_ref(q, k, v) -> torch.Tensor:
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v.to(torch.float32))
     return out.reshape(b, s, h, d).to(q.dtype)
+
+
+def ssd_scan_ref(x, dt, a, bm, cm):
+    """Naive per-token SSD recurrence, independent of any chunking:
+    s_t = exp(dt_t a) s_{t-1} + dt_t B_t ⊗ x_t;  y_t = C_t · s_t.
+    Returns (y (B, L, H, P) f32, final state (B, H, P, N) f32)."""
+    b, seq, h, p = x.shape
+    f32 = torch.float32
+    x, dt, bm, cm, a = (t.to(f32) for t in (x, dt, bm, cm, a))
+    s = torch.zeros((b, h, p, bm.shape[-1]), dtype=f32, device=x.device)
+    ys = []
+    for t in range(seq):
+        decay = torch.exp(dt[:, t] * a[None, :])                 # (B, H)
+        s = s * decay[:, :, None, None] \
+            + torch.einsum("bh,bn,bhp->bhpn", dt[:, t], bm[:, t], x[:, t])
+        ys.append(torch.einsum("bn,bhpn->bhp", cm[:, t], s))
+    return torch.stack(ys, dim=1), s

@@ -1,9 +1,13 @@
 """Serving driver: continuous batching over the slot-pool engine (port of
 ``repro.launch.serve``).  Runs on the card unless ``--device cpu``;
-weights are random, from the seed.
+weights are random, from the seed.  The dense and SSM families are ported
+(``--arch qwen1.5-4b``, ``--arch mamba2-1.3b``, ...); smoke width unless
+``--full``.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-4b \\
       --requests 16 --max-new 24 --slots 4 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b \\
+      --device cpu
 """
 from __future__ import annotations
 

@@ -1,5 +1,6 @@
 """The LM stack (port of ``repro.models``): configuration, layers, GQA
-attention on kernels 6–7, and the dense decoder's prefill and decode."""
+attention on kernels 6–7, the Mamba2 block on kernel 8, and the dense and
+SSM decoders' prefill and decode."""
 from .config import DENSE, HYBRID, MOE, SSM, ModelConfig  # noqa: F401
 from .transformer import (  # noqa: F401
     DecodeCache,

@@ -30,13 +30,19 @@ def _map(tree, fn):
     return fn(tree)
 
 
+def _first_leaf(tree):
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return tree
+
+
 def params_from_reference(tree: dict, device=None) -> dict:
     """The port's parameters from the reference's tree, on ``device``
     (default: the card)."""
     device = resolve_device(device)
     out = {name: _map(value, lambda a: _tensor(a, device))
            for name, value in tree.items() if name != "blocks"}
-    layers = np.asarray(tree["blocks"]["attn_norm"]).shape[0]
+    layers = np.asarray(_first_leaf(tree["blocks"])).shape[0]
     out["blocks"] = [_map(tree["blocks"],
                           lambda a, i=i: _tensor(np.asarray(a)[i], device))
                      for i in range(layers)]

@@ -3,7 +3,7 @@
 Parameters are nested dicts of tensors; every function takes the params
 subtree it owns, under the reference's names.  Each function rounds where
 the reference rounds: statistics and RoPE angles in float32, the result
-back in the input's dtype.  ``causal_conv1d`` comes with the SSM slice.
+back in the input's dtype.
 """
 from __future__ import annotations
 
@@ -63,3 +63,18 @@ def init_mlp(generator: torch.Generator, d_model: int, d_ff: int,
         "up": normal_init(generator, (d_model, d_ff), scale_in, dtype),
         "down": normal_init(generator, (d_ff, d_model), scale_out, dtype),
     }
+
+
+def causal_conv1d(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv over time with SiLU.  x: (B, L, C); weight:
+    (C, W).  Sums in f32 tap by tap, as the reference; returns x's
+    dtype."""
+    w = weight.shape[-1]
+    seq = x.shape[1]
+    pad = F.pad(x, (0, 0, w - 1, 0))
+    weight = weight.to(torch.float32)
+    out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for i in range(w):
+        out = out + pad[:, i:i + seq, :].to(torch.float32) \
+            * weight[:, i][None, None, :]
+    return F.silu(out).to(x.dtype)

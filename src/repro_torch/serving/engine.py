@@ -8,12 +8,14 @@ positions, so sequences of different lengths decode together in one
 Scheduling is host-side Python, as in the reference: the same admission
 order, slot pool, budgets and stats.  Tensor work is two calls:
 
-  * ``prefill``      — B=1 prompt prefill (kernel 7 per layer) producing a
+  * ``prefill``      — B=1 prompt prefill (kernel 7 per layer of a dense
+                       model, kernel 8 per layer of an SSM) producing a
                        slot-shaped cache, copied into the free slot;
-  * ``decode_step``  — one token for every slot (kernel 6 per layer).
+  * ``decode_step``  — one token for every slot (kernel 6 per dense layer;
+                       the SSM step is plain PyTorch).
 
 Idle slots decode garbage that is masked out on the host; their positions
-advance too, and a write past ``max_len`` lands on the last row, as XLA
+advance too, and a KV write past ``max_len`` lands on the last row, as XLA
 clamps the reference's.  Each step's tokens are read to the host.  The
 weights are cast to the compute dtype once, when the engine is built
 (:func:`~repro_torch.models.transformer.cast_params`), instead of at every
@@ -37,7 +39,7 @@ from .sampler import greedy
 @dataclasses.dataclass(frozen=True)
 class ServeConfig:
     max_batch: int = 8           # cache slots
-    max_len: int = 512           # per-slot KV capacity
+    max_len: int = 512           # per-slot KV/SSM capacity
     eos_id: int = -1             # -1 = never stop on a token
     cache_dtype: str = "bfloat16"
 
@@ -55,9 +57,12 @@ class Request:
 def _write_slot(batched: DecodeCache, single: DecodeCache, slot: int,
                 position) -> DecodeCache:
     """Copy a B=1 cache into slot ``slot`` of the batched cache, in place
-    (cast to the batched cache's dtype)."""
+    (cast to the batched cache's dtype); the slot's previous contents are
+    overwritten, not added to."""
     for dst, src in ((batched.kv_k, single.kv_k),
-                     (batched.kv_v, single.kv_v)):
+                     (batched.kv_v, single.kv_v),
+                     (batched.ssm_state, single.ssm_state),
+                     (batched.ssm_conv, single.ssm_conv)):
         if dst is not None:
             dst[:, slot] = src[:, 0]
     batched.position[slot] = position
@@ -71,16 +76,19 @@ class ServingEngine:
     >>> eng.submit(Request(0, prompt, max_new_tokens=32))
     >>> stats = eng.run()          # drains the queue
 
-    ``attention="plain"`` runs the kernels' twins instead of kernels 6–7.
+    ``attention="plain"`` runs the kernels' twins instead of kernels 6–7,
+    ``ssm="plain"`` the twin instead of kernel 8.
     """
 
     def __init__(self, cfg: ModelConfig, params: dict, serve: ServeConfig,
-                 sampler=greedy, attention: str = "kernel"):
+                 sampler=greedy, attention: str = "kernel",
+                 ssm: str = "kernel"):
         self.cfg = cfg
         self.params = cast_params(params, cfg.cdtype())
         self.serve = serve
         self.sampler = sampler
         self.attention = attention
+        self.ssm = ssm
         self.device = params["final_norm"].device
         b, s = serve.max_batch, serve.max_len
         cache = init_cache(cfg, b, s, getattr(torch, serve.cache_dtype),
@@ -118,7 +126,7 @@ class ServingEngine:
                                      device=self.device)[None, :]
             logits, single = prefill(self.params, self.cfg, tokens,
                                      self.serve.max_len,
-                                     attention=self.attention)
+                                     attention=self.attention, ssm=self.ssm)
             first = int(self.sampler(logits)[0])
             req.output.append(first)
             self.cache = _write_slot(self.cache, single, slot,

@@ -350,3 +350,107 @@ def test_attention_kernels_refuse_what_they_do_not_take(card):
                                 length[:1])
     out = A.decode_attention_cuda(q, k, k, length)
     torch.testing.assert_close(out, A.decode_attention_twin(q, k, k, length))
+
+
+# ---------------------------------------------------------------------------
+# kernel 8: the SSD scan.  Tolerance: max |got - want| <= 3e-4 * max(1,
+# max |want|), for y and the final state each — the reference's own
+# tolerance between two chunkings of the scan (``test_ssd_scan_kernel_
+# matches_model_path``), taken against the largest value.  The kernel and
+# its twin read the same inputs in f32 (bf16 inputs are widened exactly),
+# so bf16 needs no more.
+# ---------------------------------------------------------------------------
+
+_SSD_TOL = 3e-4
+
+
+def _ssd_inputs(card, b, seq, h, p, n, dtype, seed, mamba=False):
+    """Inputs of the reference's kernel tests, or (``mamba``) decays of
+    the Mamba2 initialisation: a in [-16, -1], dt in [1e-3, 0.1]."""
+    rng = np.random.default_rng(seed)
+    if mamba:
+        dt = rng.uniform(1e-3, 0.1, (b, seq, h))
+        a = -rng.uniform(1.0, 16.0, h)
+    else:
+        dt = rng.uniform(0.01, 0.5, (b, seq, h))
+        a = -rng.uniform(0.1, 2.0, h)
+    x, bm, cm = (rng.standard_normal(s) for s in
+                 ((b, seq, h, p), (b, seq, n), (b, seq, n)))
+    on = [torch.from_numpy(v.astype(np.float32)).to(card)
+          for v in (x, dt, a, bm, cm)]
+    on[0], on[3], on[4] = (t.to(dtype) for t in (on[0], on[3], on[4]))
+    return on
+
+
+def _ssd_close(got, want):
+    bound = _SSD_TOL * max(1.0, float(want.abs().max()))
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= bound
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,seq,h,p,n,chunk,dtype,mamba", [
+    (1, 3072, 64, 64, 128, 256, torch.bfloat16, True),   # the serving shape
+    (2, 1001, 8, 64, 128, 256, torch.float32, True),
+    (2, 100, 3, 8, 5, 16, torch.float32, False),
+    (1, 37, 2, 33, 16, 16, torch.float32, False),         # L < the sub-chunk
+    (3, 130, 4, 32, 16, 16, torch.bfloat16, False),
+])
+def test_ssd_scan_kernel_matches_twin(card, b, seq, h, p, n, chunk, dtype,
+                                      mamba):
+    """Kernel 8 vs its twin (at the model's chunk) from zeros and from an
+    initial state, at L not a multiple of the kernel's sub-chunk, P not a
+    multiple of its row tile, and underflowing decays."""
+    from repro_torch.kernels import ssd_scan as S
+    x, dt, a, bm, cm = _ssd_inputs(card, b, seq, h, p, n, dtype, seq + n,
+                                   mamba)
+    init = torch.from_numpy(np.random.default_rng(seq).standard_normal(
+        (b, h, p, n)).astype(np.float32)).to(card)
+    for start in (None, init):
+        got = S.ssd_scan_cuda(x, dt, a, bm, cm, start)
+        want = S.ssd_scan_twin(x, dt, a, bm, cm, chunk, start)
+        torch.cuda.synchronize()
+        _ssd_close(got[0], want[0])
+        _ssd_close(got[1], want[1])
+
+
+@pytest.mark.gpu
+def test_ssd_scan_kernel_matches_recurrence(card):
+    """Kernel 8 vs the per-token recurrence of ``kernels/ref.py``."""
+    from repro_torch.kernels import ref as R
+    from repro_torch.kernels import ssd_scan as S
+    x, dt, a, bm, cm = _ssd_inputs(card, 2, 200, 3, 40, 24, torch.float32, 9)
+    got = S.ssd_scan_cuda(x, dt, a, bm, cm)
+    want = R.ssd_scan_ref(x, dt, a, bm, cm)
+    torch.cuda.synchronize()
+    _ssd_close(got[0], want[0])
+    _ssd_close(got[1], want[1])
+
+
+@pytest.mark.gpu
+def test_ssd_scan_kernel_refuses_what_it_does_not_take(card):
+    from repro_torch.kernels import ssd_scan as S
+    x, dt, a, bm, cm = _ssd_inputs(card, 1, 70, 2, 16, 8, torch.float32, 1)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        S.ssd_scan_cuda(x.half(), dt, a, bm.half(), cm.half())
+    with pytest.raises(ValueError, match="dt must be torch.float32"):
+        S.ssd_scan_cuda(x, dt.bfloat16(), a, bm, cm)
+    with pytest.raises(ValueError, match="bm must be torch.bfloat16"):
+        S.ssd_scan_cuda(x.bfloat16(), dt, a, bm, cm.bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        S.ssd_scan_cuda(x.transpose(1, 2).contiguous().transpose(1, 2), dt,
+                        a, bm, cm)
+    with pytest.raises(ValueError, match="init_state"):
+        S.ssd_scan_cuda(x, dt, a, bm, cm, torch.zeros((1, 2, 16, 9),
+                                                      device=card))
+    with pytest.raises(ValueError, match="CUDA"):
+        S.ssd_scan_cuda(x.cpu(), dt.cpu(), a.cpu(), bm.cpu(), cm.cpu())
+    # N = 512 needs more shared memory than a block has: the launcher
+    # refuses it, the wrapper raises, and the next launch is unaffected
+    big = torch.zeros((1, 70, 512), device=card)
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        S.ssd_scan_cuda(x, dt, a, big, big)
+    got = S.ssd_scan_cuda(x, dt, a, bm, cm)
+    want = S.ssd_scan_twin(x, dt, a, bm, cm, 32)
+    _ssd_close(got[0], want[0])

@@ -34,7 +34,7 @@ def test_port_imports_no_jax_and_no_reference():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     report = json.loads(out.stdout.strip().splitlines()[-1])
-    assert report["modules"] >= 49
+    assert report["modules"] >= 51
     assert report["imported"] == []
 
 
@@ -51,7 +51,8 @@ def test_every_port_module_is_listed():
                 "kernels._build", "graphs.generators", "provenance",
                 "quickstart", "sweeps", "sweeps.runtime", "sweeps.metrics",
                 "sweep_study", "kernels.decode_attention",
-                "kernels.flash_attention", "configs", "configs.qwen1p5_4b",
+                "kernels.flash_attention", "kernels.ssd_scan", "models.ssm",
+                "configs", "configs.qwen1p5_4b",
                 "configs.minicpm_2b", "configs.yi_34b", "configs.granite_34b",
                 "configs.chameleon_34b", "configs.musicgen_medium",
                 "configs.mamba2_1p3b", "configs.zamba2_7b",

@@ -1,7 +1,7 @@
-"""The port's dense LM stack against the reference: layers, the parameter
+"""The port's LM stack against the reference: layers, the parameter
 converter, and forward / prefill / decode on the smoke configs of the
 five dense variants (qkv bias; tied embeddings with multipliers; MQA; GQA
-with G=4; embedding inputs).
+with G=4; embedding inputs) and of mamba2 (the SSM family).
 
 Weights come from the reference's ``init_params(cfg, PRNGKey(0))``,
 converted by :func:`repro_torch.models.convert.params_from_reference`;
@@ -32,6 +32,7 @@ from repro.models import transformer as jtf
 from repro_torch import configs as tconfigs
 from repro_torch.models import attention as tattn
 from repro_torch.models import layers as tlayers
+from repro_torch.models import ssm as tssm
 from repro_torch.models import transformer as ttf
 from repro_torch.models.convert import param_count, params_from_reference
 
@@ -104,7 +105,7 @@ def test_config_modules_are_the_references():
     assert tconfigs.get_config("qwen1.5-4b").pdtype() == torch.float32
 
 
-@pytest.mark.parametrize("arch", DENSE_VARIANTS + ["yi-34b"])
+@pytest.mark.parametrize("arch", DENSE_VARIANTS + ["yi-34b", "mamba2-1.3b"])
 def test_converted_params_keep_param_count(arch):
     jcfg, jparams, tcfg, tparams = _models(arch)
     assert len(tparams["blocks"]) == tcfg.num_layers
@@ -125,7 +126,7 @@ def test_converted_params_keep_param_count(arch):
 # forward, prefill, decode against the reference
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", DENSE_VARIANTS)
+@pytest.mark.parametrize("arch", DENSE_VARIANTS + ["mamba2-1.3b"])
 def test_forward_prefill_decode_match_reference(arch):
     jcfg, jparams, tcfg, tparams = _models(arch)
     b, t = 2, 12
@@ -138,8 +139,10 @@ def test_forward_prefill_decode_match_reference(arch):
     tlast, tcache = ttf.prefill(tparams, tcfg, tx[:, :t - 3], max_len=t + 4)
     assert tlast.shape == (b, 1, tcfg.vocab_size)
     _close(tlast, jlast)
-    _close(tcache.kv_k, jcache.kv_k)
-    _close(tcache.kv_v, jcache.kv_v)
+    names = ("ssm_state", "ssm_conv") if tcfg.family == "ssm" \
+        else ("kv_k", "kv_v")
+    for name in names:
+        _close(getattr(tcache, name), getattr(jcache, name))
     assert int(tcache.position) == int(jcache.position) == t - 3
     for step in range(t - 3, t):
         jstep, jcache = jtf.decode_step(jparams, jcfg, jx[:, step:step + 1],
@@ -148,7 +151,10 @@ def test_forward_prefill_decode_match_reference(arch):
                                         tcache)
         _close(tstep, jstep)
         _close(tstep[:, 0], tlogits[:, step])
-    _close(tcache.kv_k, jcache.kv_k)
+    for name in names:
+        _close(getattr(tcache, name), getattr(jcache, name))
+    assert torch.equal(torch.argmax(tstep, -1),
+                       torch.from_numpy(np.array(jnp.argmax(jstep, -1))))
 
 
 def test_decode_attention_step_matches_reference():
@@ -231,8 +237,8 @@ def test_cast_params_casts_matrices_and_keeps_norms():
     assert same["lm_head"] is params["lm_head"]
 
 
-@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "mamba2-1.3b",
-                                  "zamba2-7b", "qwen3-moe-235b-a22b"])
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "zamba2-7b",
+                                  "qwen3-moe-235b-a22b"])
 def test_other_families_are_not_ported_yet(arch):
     cfg = tconfigs.get_smoke_config(arch)
     with pytest.raises(NotImplementedError, match="not ported"):
@@ -242,7 +248,8 @@ def test_other_families_are_not_ported_yet(arch):
 
 
 @pytest.mark.parametrize("build", ["init_cache", "init_kv_cache",
-                                   "params_from_reference"])
+                                   "params_from_reference", "init_ssm_cache",
+                                   "init_cache_ssm"])
 def test_builders_default_to_the_card(build, monkeypatch):
     """With no ``device``, the cache and parameter builders place their
     tensors on the package's default device (the card), through
@@ -254,9 +261,67 @@ def test_builders_default_to_the_card(build, monkeypatch):
         tensors = list(ttf.init_cache(cfg, 2, 8)[:2])
     elif build == "init_kv_cache":
         tensors = list(tattn.init_kv_cache(cfg, 2, 8))
+    elif build == "init_ssm_cache":
+        tensors = list(tssm.init_ssm_cache(
+            tconfigs.get_smoke_config("mamba2-1.3b"), 2))
+    elif build == "init_cache_ssm":
+        tensors = list(ttf.init_cache(
+            tconfigs.get_smoke_config("mamba2-1.3b"), 2, 8)[2:])
     else:
         jparams = jtf.init_params(jconfigs.get_smoke_config("qwen1.5-4b"),
                                   jax.random.PRNGKey(0))
         params = params_from_reference(jax.tree.map(np.asarray, jparams))
         tensors = [params["embed"], params["blocks"][0]["attn"]["wq"]]
     assert all(t.device.type == "meta" for t in tensors)
+
+
+def test_cast_params_keeps_the_ssm_f32_leaves():
+    """``A_log``, ``dt_bias``, ``D`` and ``conv_w`` stay f32 (the reference
+    reads them in f32) and the matrices go to bf16, so one bf16 decode
+    step on the cast parameters equals one on the uncast ones."""
+    _, _, cfg, params = _models("mamba2-1.3b")
+    cast = ttf.cast_params(params, torch.bfloat16)
+    ssm = cast["blocks"][1]["ssm"]
+    for name in ("A_log", "dt_bias", "D", "conv_w", "gate_norm"):
+        assert ssm[name].dtype == torch.float32
+        assert ssm[name] is params["blocks"][1]["ssm"][name]
+    for name in ("in_proj", "out_proj"):
+        assert ssm[name].dtype == torch.bfloat16
+    assert cast["embed"].dtype == torch.bfloat16
+    assert cast["blocks"][0]["norm"] is params["blocks"][0]["norm"]
+    cfg16 = dataclasses.replace(cfg, compute_dtype="bfloat16")
+    _, tokens = _inputs(cfg, 2, 7, seed=9)
+    steps = []
+    for p in (params, cast):
+        _, cache = ttf.prefill(p, cfg16, tokens[:, :6], max_len=16)
+        steps.append(ttf.decode_step(p, cfg16, tokens[:, 6:], cache)[0])
+    assert cache.ssm_conv.dtype == torch.bfloat16
+    assert torch.equal(steps[0], steps[1])
+
+
+def test_ssm_init_and_cache_shapes():
+    cfg = tconfigs.get_smoke_config("mamba2-1.3b")
+    params = ttf.init_params(cfg, torch.Generator().manual_seed(0))
+    assert sorted(params["blocks"][0]) == ["norm", "ssm"]
+    assert "lm_head" not in params                     # tied embeddings
+    cache = ttf.init_cache(cfg, 3, 8, dtype=torch.bfloat16, device="cpu")
+    assert cache.kv_k is None and cache.kv_v is None
+    assert cache.ssm_state.dtype == torch.float32
+    assert cache.ssm_state.shape == (cfg.num_layers, 3, cfg.ssm_heads,
+                                     cfg.ssm_head_dim, cfg.ssm_state)
+    assert cache.ssm_conv.dtype == torch.bfloat16
+    assert cache.ssm_conv.shape == (cfg.num_layers, 3, cfg.ssm_conv - 1,
+                                    cfg.d_inner + 2 * cfg.ssm_state)
+
+
+def test_ssm_plain_path_equals_kernel_path_on_the_cpu():
+    """On CPU tensors kernel 8's adapter takes its twin, so ``ssm="plain"``
+    gives the same bits through prefill and forward_logits."""
+    _, _, cfg, params = _models("mamba2-1.3b")
+    _, tokens = _inputs(cfg, 1, 19, seed=10)
+    a, ca = ttf.prefill(params, cfg, tokens, max_len=32)
+    p, cp = ttf.prefill(params, cfg, tokens, max_len=32, ssm="plain")
+    assert torch.equal(a, p) and torch.equal(ca.ssm_state, cp.ssm_state)
+    fa, _ = ttf.forward_logits(params, cfg, tokens)
+    fp, _ = ttf.forward_logits(params, cfg, tokens, ssm="plain")
+    assert torch.equal(fa, fp)

@@ -2,10 +2,11 @@
 
 Weights come from the reference's ``init_params(cfg, PRNGKey(0))``,
 converted; requests from ``numpy.random.default_rng``.  Both engines run
-greedy decoding on the f32 smoke configs with f32 caches, so they must
-agree exactly on every token and on the number of decode steps and
-prefills.  The idle-slot test holds the port's decode logits against the
-reference's at rtol = atol = 1e-4 (f32, see ``test_torch_models.py``).
+greedy decoding on the f32 smoke configs (dense, and mamba2 for the SSM
+family) with f32 caches, so they must agree exactly on every token and on
+the number of decode steps and prefills.  The idle-slot test holds the
+port's decode logits against the reference's at rtol = atol = 1e-4 (f32,
+see ``test_torch_models.py``).
 """
 from __future__ import annotations
 
@@ -83,6 +84,53 @@ def test_engine_matches_reference_engine(arch):
     want = {r.uid: r.output for r in jeng.finished}
     assert {r.uid: r.output for r in teng.finished} == want
     assert [r.uid for r in teng.finished] == [r.uid for r in jeng.finished]
+
+
+def test_ssm_engine_matches_reference_engine():
+    """mamba2 smoke through both engines: prompts shorter than the conv
+    window (1 and 2 tokens against W-1 = 3) and longer than a chunk, more
+    requests than slots, so slots are reused; every token, decode step
+    and prefill equal."""
+    jcfg, jparams, tcfg, tparams = _models("mamba2-1.3b")
+    serve = dict(max_batch=3, max_len=64, cache_dtype="float32")
+    jeng = JServingEngine(jcfg, jparams, JServeConfig(**serve))
+    teng = ServingEngine(tcfg, tparams, ServeConfig(**serve))
+    rng = np.random.default_rng(12)
+    for uid, s in enumerate((1, 2, 37, 3, 1, 20, 9, 2, 30)):
+        prompt = rng.integers(0, jcfg.vocab_size, s).astype(np.int32)
+        n = int(rng.integers(1, 12))
+        jeng.submit(JRequest(uid, prompt, max_new_tokens=n))
+        teng.submit(Request(uid, prompt, max_new_tokens=n))
+    jstats, tstats = jeng.run(), teng.run()
+    assert tstats["prefills"] == 9 > serve["max_batch"]
+    for key in ("requests", "decode_steps", "prefills", "generated_tokens"):
+        assert tstats[key] == jstats[key], key
+    assert {r.uid: r.output for r in teng.finished} == \
+        {r.uid: r.output for r in jeng.finished}
+
+
+def test_ssm_slot_reuse_overwrites_the_state():
+    """Writing a prefill into a used slot leaves exactly the new request's
+    state and conv window there (cast to the batched cache's dtype), and
+    the other slots as they were."""
+    from repro_torch.serving.engine import _write_slot
+    cfg = tconfigs.get_smoke_config("mamba2-1.3b")
+    params = ttf.init_params(cfg, torch.Generator().manual_seed(0))
+    batched = ttf.init_cache(cfg, 3, 32, torch.bfloat16, device="cpu")
+    batched = batched._replace(position=torch.zeros(3, dtype=torch.int32))
+    batched.ssm_state.fill_(7.0)
+    batched.ssm_conv.fill_(7.0)
+    tokens = torch.randint(0, cfg.vocab_size, (1, 5),
+                           generator=torch.Generator().manual_seed(1))
+    _, single = ttf.prefill(params, cfg, tokens, max_len=32)
+    _write_slot(batched, single, 1, 5)
+    assert torch.equal(batched.ssm_state[:, 1], single.ssm_state[:, 0])
+    assert torch.equal(batched.ssm_conv[:, 1],
+                       single.ssm_conv[:, 0].to(torch.bfloat16))
+    for slot in (0, 2):
+        assert bool((batched.ssm_state[:, slot] == 7.0).all())
+        assert bool((batched.ssm_conv[:, slot] == 7.0).all())
+    assert batched.position.tolist() == [0, 5, 0]
 
 
 def test_continuous_batching_admits_from_queue():
@@ -219,3 +267,14 @@ def test_serve_driver_runs_on_the_cpu():
         cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert "6 requests | 30 tokens" in out.stdout
+
+
+def test_serve_driver_runs_mamba2_on_the_cpu():
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         "mamba2-1.3b", "--device", "cpu", "--requests", "5", "--max-new",
+         "4", "--slots", "2", "--max-len", "64"],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "5 requests | 20 tokens" in out.stdout
