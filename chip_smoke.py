@@ -58,11 +58,13 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      (unbounded, move_prob 0.5, ε=1e-3, 24 sweeps), each bitwise a lone
      ``refine_sweeps`` with the generator derived for its index;
  13. attention kernels vs twins on the card — kernel 6 (decode attention)
-     at (B, H, Hkv, D, S) = (16, 20, 20, 128, 4096), (4, 32, 8, 128, 1000)
-     and (3, 8, 1, 64, 777) with ragged lengths (one above S, clamped);
-     kernel 7 (causal flash attention) at (B, S, H, Hkv, D) = (1, 3072,
-     20, 20, 128), (2, 1000, 32, 8, 128) and (1, 333, 8, 1, 64); f32 and
-     bf16 within stated tolerances; refused launches raise;
+     at (B, H, Hkv, D, S) = (16, 20, 20, 128, 4096), (4, 32, 8, 128,
+     1000), (3, 8, 1, 64, 777) and (16, 32, 32, 112, 4096) with ragged
+     lengths (one above S, clamped); kernel 7 (causal flash attention; bf16
+     on the tensor-core kernel, f32 on the CUDA-core one) at (B, S, H, Hkv,
+     D) = (1, 3072, 20, 20, 128), (2, 1000, 32, 8, 128), (1, 333, 8, 1,
+     64), (1, 3072, 32, 32, 112), (2, 1000, 32, 8, 96) and (1, 130, 14, 2,
+     100); f32 and bf16 within stated tolerances; refused launches raise;
  14. full-width serving — qwen1.5-4b's published config (40 layers,
      d_model 2560, vocab 151936, f32 parameters, bf16 compute), weights
      from ``init_params`` with a seeded generator on the card,
@@ -77,7 +79,10 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      2 slots, max_len 1024, prompts of 500 and 900 tokens, 16 new tokens:
      equal tokens, logits within a stated tolerance;
  16. attention times — kernels 6 and 7 at the serving shapes beside their
-     bound, their twins and ``scaled_dot_product_attention``;
+     bound, their twins and ``scaled_dot_product_attention``, measured in
+     turns; the device time of each from CUDA events around a loop that
+     only calls the kernel's C entry point; kernel 7's f32 instance at the
+     same shape;
  17. kernel 8 (the SSD scan) vs its twin on the card — (B, L, H, P, N) =
      (1, 3072, 64, 64, 128) with bf16 x/bm/cm (the serving shape), (2,
      1001, ...) in f32 and (2, 777, ...) from an initial state, with the
@@ -158,11 +163,14 @@ PROFILE_STEPS = 8           # profiled engine decode steps at full occupancy
 PARITY_PROMPTS = (500, 900)  # phase 15, f32 compute, kernel vs plain path
 PARITY_NEW = 16
 PARITY_MAX_LEN = 1024
-# (B, H, Hkv, D, S) and (B, S, H, Hkv, D) of phase 13
+# (B, H, Hkv, D, S) and (B, S, H, Hkv, D) of phase 13; head_dim 112 is
+# zamba2-7b's, 96 is not a power of two and 100 not a multiple of 8 (the
+# bf16 kernel 7 then pads it)
 DECODE_SHAPES = ((16, 20, 20, 128, 4096), (4, 32, 8, 128, 1000),
-                 (3, 8, 1, 64, 777))
+                 (3, 8, 1, 64, 777), (16, 32, 32, 112, 4096))
 FLASH_SHAPES = ((1, 3072, 20, 20, 128), (2, 1000, 32, 8, 128),
-                (1, 333, 8, 1, 64))
+                (1, 333, 8, 1, 64), (1, 3072, 32, 32, 112),
+                (2, 1000, 32, 8, 96), (1, 130, 14, 2, 100))
 # kernel vs twin, |diff| <= atol + rtol * |want|: f32 sums the same
 # products in another order; bf16 adds one rounding of the output (2^-7
 # relative at most)
@@ -463,7 +471,8 @@ def kernel_device_us(calls: dict, attempts: int = 3) -> dict:
     """Mean device time (us) of each kernel, by the profiler: ``calls``
     maps a kernel name to (function launching it, repetitions).  A window
     in which the profiler recorded none of the kernel's launches is taken
-    again, up to ``attempts`` windows; after that the time is None."""
+    again, up to ``attempts`` windows; after that the time is None and the
+    device keys of the last window are logged."""
     from torch.profiler import ProfilerActivity, profile
     out = {}
     for name, (fn, reps) in calls.items():
@@ -483,6 +492,11 @@ def kernel_device_us(calls: dict, attempts: int = 3) -> dict:
                 out[name] = sum(e.self_device_time_total
                                 for e in hits) / count
                 break
+        else:
+            seen = [(e.key[:60], e.count) for e in prof.key_averages()
+                    if e.self_device_time_total > 0]
+            log(f"  the profiler saw no {name}_kernel in {attempts} "
+                f"window(s); device keys of the last: {seen}")
     return out
 
 
@@ -1264,7 +1278,7 @@ def phase_attention_kernels(A, F):
         f"{ATTN_TOL[torch.bfloat16][0]} atol {ATTN_TOL[torch.bfloat16][1]}")
     q, k = _attn_inputs([(2, 4, 64), (2, 10, 2, 64)], 0, torch.float32)
     length = torch.full((2,), 5, dtype=torch.int32, device="cuda")
-    q4, k4 = _attn_inputs([(1, 10, 4, 96), (1, 10, 2, 96)], 0,
+    q4, k4 = _attn_inputs([(1, 10, 4, 264), (1, 10, 2, 264)], 0,
                           torch.float32)
     qg, kg = _attn_inputs([(1, 4, 65, 8), (1, 4, 1, 8)], 0, torch.float32)
     qd, kd = _attn_inputs([(1, 130, 128), (1, 8, 1, 128)], 0, torch.float32)
@@ -1273,7 +1287,7 @@ def phase_attention_kernels(A, F):
             q.half(), k.half(), k.half(), length),
         "a non-contiguous cache": lambda: A.decode_attention_cuda(
             q, k.transpose(0, 1).contiguous().transpose(0, 1), k, length),
-        "head_dim 96": lambda: F.flash_attention_cuda(q4, k4, k4),
+        "head_dim 264": lambda: F.flash_attention_cuda(q4, k4, k4),
         "a bf16 query with f32 keys": lambda: F.flash_attention_cuda(
             q4[..., :64].contiguous().bfloat16(), k4[..., :64].contiguous(),
             k4[..., :64].contiguous()),
@@ -1522,7 +1536,12 @@ def _sdpa():
 
 def phase_attention_times(A, F, engine, card):
     """Phase 16: kernels 6-7 at the serving shapes."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.dissatisfaction import _ptr
     cfg_h, hkv, d = 20, 20, 128
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
     # kernel 6: layer 0 of the engine's cache, each slot's current length
     k6, v6 = engine.cache.kv_k[0], engine.cache.kv_v[0]
     b, s = k6.shape[0], k6.shape[1]
@@ -1531,6 +1550,10 @@ def phase_attention_times(A, F, engine, card):
     valid = int(length.sum())
     mask = (torch.arange(s, device="cuda")[None, :] < length[:, None])[
         :, None, None, :]
+    out6 = torch.empty_like(q6)
+    lib6 = _build.library("attention").decode_attention
+    args6 = (_ptr(q6), _ptr(k6), _ptr(v6), _ptr(length), _ptr(out6), b,
+             cfg_h, hkv, s, d, 1, stream)
 
     def k6_call():
         A.decode_attention_cuda(q6, k6, v6, length)
@@ -1542,10 +1565,17 @@ def phase_attention_times(A, F, engine, card):
         _sdpa()(q6[:, :, None, :], k6.transpose(1, 2), v6.transpose(1, 2),
                 attn_mask=mask, enable_gqa=True)
 
+    def raw6():
+        lib6(*args6)
+
     # kernel 7: the longest prompt of the serving run, S = 3072
     s7 = SERVE_PROMPT[1]
     q7, k7, v7 = _attn_inputs([(1, s7, cfg_h, d), (1, s7, hkv, d),
                                (1, s7, hkv, d)], 7, torch.bfloat16)
+    out7 = torch.empty_like(q7)
+    lib7 = _build.library("flash_attention").flash_attention_bf16
+    args7 = (_ptr(q7), _ptr(k7), _ptr(v7), _ptr(out7), 1, s7, cfg_h, hkv, d,
+             d, stream)
 
     def k7_call():
         F.flash_attention_cuda(q7, k7, v7)
@@ -1557,46 +1587,73 @@ def phase_attention_times(A, F, engine, card):
         _sdpa()(q7.transpose(1, 2), k7.transpose(1, 2), v7.transpose(1, 2),
                 is_causal=True, enable_gqa=True)
 
-    calls = {"k6": (k6_call, 50), "p6": (p6_call, 5), "l6": (lib6_call, 20),
-             "k7": (k7_call, 10), "p7": (p7_call, 3), "l7": (lib7_call, 10)}
+    def raw7():
+        lib7(*args7)
+
+    # the launch-only loops skip the wrappers' checks: check once here
+    # that one call of each launches and matches its wrapper bitwise
+    for raw, lib, args, out, wrapped in (
+            (raw6, lib6, args6, out6, lambda: A.decode_attention_cuda(
+                q6, k6, v6, length)),
+            (raw7, lib7, args7, out7, lambda: F.flash_attention_cuda(
+                q7, k7, v7))):
+        if lib(*args) != 0 or not torch.equal(out, wrapped()):
+            fail("a launch-only call differs from its wrapper's")
+
+    calls = {"k6": (k6_call, 50), "d6": (raw6, 50), "p6": (p6_call, 5),
+             "l6": (lib6_call, 20), "k7": (k7_call, 50), "d7": (raw7, 50),
+             "p7": (p7_call, 3), "l7": (lib7_call, 50)}
     t = {name: [] for name in calls}
     for order in (list(calls), list(reversed(calls))):
         for name in order:
             fn, iters = calls[name]
             t[name].append(cuda_ms(fn, iters, warmup=2))
     ms = {name: float(np.mean(v)) for name, v in t.items()}
-    device_us = kernel_device_us({"decode_attention": (k6_call, 20),
-                                  "flash_attention": (k7_call, 5)})
+    prof_us = kernel_device_us({"decode_attention": (raw6, 20),
+                                "flash_attention": (raw7, 20)}, attempts=1)
+    q32, k32, v32 = (x.float() for x in (q7, k7, v7))
+    f32_ms = cuda_ms(lambda: F.flash_attention_cuda(q32, k32, v32), 5,
+                     warmup=1)
+    log(f"  flash_attention f32 instance (attention.cu, CUDA cores) at "
+        f"(1, {s7}, {cfg_h}, {hkv}, {d}): {f32_ms:.5f} ms per call [{card}]")
+    del q32, k32, v32
     bf = 2
     bytes6 = bf * (2 * valid * hkv * d + 2 * b * cfg_h * d) + 4 * b
     ops6 = 4 * valid * cfg_h * d           # q.k and p.v, 2 flops per MAC
     bytes7 = bf * (2 * s7 * cfg_h * d + 2 * s7 * hkv * d)
     ops7 = 4 * cfg_h * d * s7 * (s7 + 1) // 2
     out = []
-    for name, byt, flops, kern, plain, lib, line, shape in (
-            ("decode_attention", bytes6, ops6, ms["k6"], ms["p6"], ms["l6"],
+    for name, byt, flops, key, source, line, shape in (
+            ("decode_attention", bytes6, ops6, "6", "attention.cu",
              "decode_attention.py:70",
              f"(B, H, Hkv, D, S)=({b}, {cfg_h}, {hkv}, {d}, {s}), bf16, "
              f"{valid} valid positions"),
-            ("flash_attention", bytes7, ops7, ms["k7"], ms["p7"], ms["l7"],
+            ("flash_attention", bytes7, ops7, "7", "flash_attention.cu",
              "flash_attention.py:90",
              f"(B, S, H, Hkv, D)=(1, {s7}, {cfg_h}, {hkv}, {d}), bf16")):
+        kern, plain, lib = ms["k" + key], ms["p" + key], ms["l" + key]
+        dev = 1e3 * ms["d" + key]   # us, a loop of C entry-point calls
         t_bytes = 1e3 * byt / PEAK_BYTES_S
         t_ops = 1e3 * flops / PEAK_BF16_FLOPS
         rec = {"name": name, "route": "cuda",
-               "source": "src/repro_torch/kernels/csrc/attention.cu",
+               "source": f"src/repro_torch/kernels/csrc/{source}",
                "replaces": f"src/repro/kernels/{line}",
                "ms": kern, "plain_ms": plain,
                "bound_ms": max(t_bytes, t_ops),
                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                "library_ms": lib}
-        dev = device_us[name]
+        prof = prof_us[name]
         log(f"  {name} at {shape}: kernel {kern:.5f} ms per call "
-            f"({'not measured' if dev is None else f'{dev:.2f} us'} on the "
-            f"device), twin {plain:.5f} ms, bound {rec['bound_ms']:.5f} ms "
-            f"({rec['bound_by']}; {byt / 1e6:.2f} MB, {flops / 1e9:.2f} "
-            f"GFLOP), library (scaled_dot_product_attention) {lib:.5f} ms "
-            f"[{card}]")
+            f"({dev:.2f} us on the device by CUDA events around a loop that "
+            f"only launches it; "
+            f"{'no profiler record' if prof is None else f'{prof:.2f} us'} "
+            f"by the profiler), twin {plain:.5f} ms, bound "
+            f"{rec['bound_ms']:.5f} ms ({rec['bound_by']}; "
+            f"{byt / 1e6:.2f} MB, {flops / 1e9:.2f} GFLOP), library "
+            f"(scaled_dot_product_attention) {lib:.5f} ms; kernel / bound "
+            f"{kern / rec['bound_ms']:.2f}, bound share "
+            f"{rec['bound_ms'] / kern:.4f}, kernel / library "
+            f"{kern / lib:.3f} [{card}]")
         out.append(rec)
     return out
 

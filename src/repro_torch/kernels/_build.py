@@ -56,8 +56,13 @@ SIGNATURES = {
     "attention": {
         # q, k, v, length, out, B, H, Hkv, S, D, dtype, stream
         "decode_attention": [_F] * 5 + [_I] * 6 + [_F],
-        # q, k, v, out, B, S, H, Hkv, D, dtype, stream
-        "flash_attention": [_F] * 4 + [_I] * 6 + [_F],
+        # q, k, v, out, B, S, H, Hkv, D, stream (float32 only)
+        "flash_attention": [_F] * 4 + [_I] * 5 + [_F],
+    },
+    "flash_attention": {
+        # q, k, v, out, B, S, H, Hkv, D (stored width), head_dim, stream
+        # (bfloat16)
+        "flash_attention_bf16": [_F] * 4 + [_I] * 6 + [_F],
     },
     "ssd_scan": {
         # x, dt, a, bm, cm, init_state, y, final_state, B, L, H, P, N,

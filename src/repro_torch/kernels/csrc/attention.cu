@@ -8,10 +8,14 @@
 // refinement kernels; the dot products here ask for fused multiply-adds
 // explicitly (fmaf), which that flag leaves alone.
 //
-// Both kernels are templated on the element type (float or
-// __nv_bfloat16) and on the head dimension (8, 16, 64, 128: every
-// head_dim of the repo's dense configs).  Inputs are read in 16-byte
-// vectors and widened to float in shared memory; all arithmetic is f32;
+// Kernel 6 is templated on the element type (float or __nv_bfloat16),
+// kernel 7 here takes float (bf16 inputs go to flash_attention.cu's
+// tensor-core kernel); both are instantiated on a padded head width DP in
+// {16, 32, 64, 128, 256} and take the real head_dim D <= DP at run time,
+// as the reference pads D.  Rows are read in 16-byte vectors where D
+// fills whole vectors, element by element otherwise, and widened to float
+// in shared memory with zeros in columns D..DP-1, which add nothing to a
+// dot product; columns past D are never stored.  All arithmetic is f32;
 // the output is rounded once to the element type.  The mask value and the
 // divisor clamp are the TPU kernels': -1e30 and max(l, 1e-30).
 //
@@ -61,25 +65,34 @@ __device__ __forceinline__ float warp_sum(float x) {
 }
 
 // Stage rows [0, n) of a TILE-row tile into shared memory as float: row r
-// of the source starts at row_ptr(r) (D contiguous elements, 16-byte
-// aligned) and lands at dst + r * ld.  Every load of the tile is issued
-// before the first store, so a thread keeps kIters 16-byte loads in flight
-// per array.  Rows n..TILE-1 are left as they are.
-template <typename T, int D, int TILE, typename RowPtr>
-__device__ __forceinline__ void stage_rows(RowPtr row_ptr, int n, float* dst,
-                                           int ld) {
+// of the source starts at row_ptr(r) (d contiguous elements) and lands at
+// dst + r * ld, columns d..DP-1 as zeros.  Where d is a whole number of
+// 16-byte vectors (rows then start 16-byte aligned), every load of the
+// tile is issued before the first store, so a thread keeps kIters 16-byte
+// loads in flight per array; other widths are read element by element.
+// Rows n..TILE-1 are left as they are.
+template <typename T, int DP, int TILE, typename RowPtr>
+__device__ __forceinline__ void stage_rows(RowPtr row_ptr, int n, int d,
+                                           float* dst, int ld) {
   constexpr int kVec = 16 / static_cast<int>(sizeof(T));  // per 16 bytes
-  constexpr int kPerRow = D / kVec;
+  if (d % kVec != 0) {
+    for (int i = threadIdx.x; i < n * DP; i += kThreads) {
+      const int r = i / DP, c = i % DP;
+      dst[r * ld + c] = c < d ? to_float(row_ptr(r)[c]) : 0.f;
+    }
+    return;
+  }
+  constexpr int kPerRow = DP / kVec;
   constexpr int kTotal = TILE * kPerRow;
   constexpr int kIters = (kTotal + kThreads - 1) / kThreads;
   uint4 buf[kIters];
 #pragma unroll
   for (int it = 0; it < kIters; ++it) {
     const int i = threadIdx.x + it * kThreads;
-    const int r = i / kPerRow;
-    if (i < kTotal && r < n)
-      buf[it] = *reinterpret_cast<const uint4*>(row_ptr(r) +
-                                                (i % kPerRow) * kVec);
+    const int r = i / kPerRow, c = (i % kPerRow) * kVec;
+    buf[it] = make_uint4(0, 0, 0, 0);
+    if (i < kTotal && r < n && c < d)
+      buf[it] = *reinterpret_cast<const uint4*>(row_ptr(r) + c);
   }
 #pragma unroll
   for (int it = 0; it < kIters; ++it) {
@@ -96,13 +109,15 @@ __device__ __forceinline__ void stage_rows(RowPtr row_ptr, int n, float* dst,
 
 // K and V rows [s0, s0 + n) of one (batch, kv head): consecutive
 // positions are `stride` elements apart.
-template <typename T, int D, int TILE>
+template <typename T, int DP, int TILE>
 __device__ __forceinline__ void stage_kv(const T* __restrict__ k,
                                          const T* __restrict__ v,
-                                         size_t stride, int n, float* s_k,
-                                         int ldk, float* s_v) {
-  stage_rows<T, D, TILE>([=](int r) { return k + r * stride; }, n, s_k, ldk);
-  stage_rows<T, D, TILE>([=](int r) { return v + r * stride; }, n, s_v, D);
+                                         size_t stride, int n, int d,
+                                         float* s_k, int ldk, float* s_v) {
+  stage_rows<T, DP, TILE>([=](int r) { return k + r * stride; }, n, d, s_k,
+                          ldk);
+  stage_rows<T, DP, TILE>([=](int r) { return v + r * stride; }, n, d, s_v,
+                          DP);
 }
 
 // ---------------------------------------------------------------------------
@@ -132,28 +147,28 @@ __device__ __forceinline__ void stage_kv(const T* __restrict__ k,
 
 constexpr int kDecodeTile = 64;
 
-template <int D>
+template <int DP>
 size_t decode_smem_bytes(int G) {
   const int TS = kDecodeTile;
-  return sizeof(float) * (static_cast<size_t>(TS) * (D + 1) + TS * D +
-                          2 * G * D + G * TS + 3 * G);
+  return sizeof(float) * (static_cast<size_t>(TS) * (DP + 1) + TS * DP +
+                          2 * G * DP + G * TS + 3 * G);
 }
 
-template <typename T, int D>
+template <typename T, int DP>
 __global__ void __launch_bounds__(kThreads)
     decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                             const T* __restrict__ v,
                             const int* __restrict__ length,
-                            T* __restrict__ out, int S, int Hkv, int G,
+                            T* __restrict__ out, int S, int Hkv, int G, int D,
                             float scale) {
   constexpr int TS = kDecodeTile;
-  constexpr int LDK = D + 1;  // odd row stride: a warp's key rows hit 32 banks
+  constexpr int LDK = DP + 1;  // odd row stride: a warp's key rows hit 32 banks
   extern __shared__ float smem[];
   float* s_k = smem;               // TS x LDK
-  float* s_v = s_k + TS * LDK;     // TS x D
-  float* s_q = s_v + TS * D;       // G x D, scaled
-  float* s_acc = s_q + G * D;      // G x D
-  float* s_p = s_acc + G * D;      // G x TS: logits, then probabilities
+  float* s_v = s_k + TS * LDK;     // TS x DP
+  float* s_q = s_v + TS * DP;      // G x DP, scaled
+  float* s_acc = s_q + G * DP;     // G x DP
+  float* s_p = s_acc + G * DP;     // G x TS: logits, then probabilities
   float* s_m = s_p + G * TS;       // G running max
   float* s_l = s_m + G;            // G running sum
   float* s_corr = s_l + G;         // G rescale of this tile
@@ -161,10 +176,11 @@ __global__ void __launch_bounds__(kThreads)
   const int h = blockIdx.x, b = blockIdx.y;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int len = min(max(length[b], 0), S);
-  const int GD = G * D;
+  const int GD = G * D, GDP = G * DP;
   const T* qb = q + (static_cast<size_t>(b) * Hkv + h) * GD;
-  for (int i = tid; i < GD; i += kThreads) {
-    s_q[i] = to_float(qb[i]) * scale;
+  for (int i = tid; i < GDP; i += kThreads) {
+    const int g = i / DP, c = i % DP;
+    s_q[i] = c < D ? to_float(qb[g * D + c]) * scale : 0.f;
     s_acc[i] = 0.f;
   }
   for (int g = tid; g < G; g += kThreads) {
@@ -177,18 +193,18 @@ __global__ void __launch_bounds__(kThreads)
 
   for (int j0 = 0; j0 < len; j0 += TS) {
     const int n = min(TS, len - j0);
-    stage_kv<T, D, TS>(k + base + j0 * stride, v + base + j0 * stride,
-                       stride, n, s_k, LDK, s_v);
+    stage_kv<T, DP, TS>(k + base + j0 * stride, v + base + j0 * stride,
+                        stride, n, D, s_k, LDK, s_v);
     __syncthreads();
     for (int i = tid; i < G * TS; i += kThreads) {
       const int g = i / TS, j = i % TS;
       float logit = kNegInf;
       if (j < n) {
-        const float* qr = s_q + g * D;
+        const float* qr = s_q + g * DP;
         const float* kr = s_k + j * LDK;
         float dot = 0.f;
 #pragma unroll
-        for (int d = 0; d < D; ++d) dot = fmaf(qr[d], kr[d], dot);
+        for (int d = 0; d < DP; ++d) dot = fmaf(qr[d], kr[d], dot);
         logit = dot;
       }
       s_p[i] = logit;
@@ -216,23 +232,27 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
     __syncthreads();
-    for (int i = tid; i < GD; i += kThreads) {
-      const int g = i / D, d = i % D;
+    for (int i = tid; i < GDP; i += kThreads) {
+      const int g = i / DP, d = i % DP;
       const float* pr = s_p + g * TS;
       float a = s_acc[i] * s_corr[g];
-      for (int j = 0; j < n; ++j) a = fmaf(pr[j], s_v[j * D + d], a);
+      for (int j = 0; j < n; ++j) a = fmaf(pr[j], s_v[j * DP + d], a);
       s_acc[i] = a;
     }
     __syncthreads();
   }
   __syncthreads();
   T* ob = out + (static_cast<size_t>(b) * Hkv + h) * GD;
-  for (int i = tid; i < GD; i += kThreads)
-    ob[i] = from_float<T>(s_acc[i] / fmaxf(s_l[i / D], kMinDenom));
+  for (int i = tid; i < GD; i += kThreads) {
+    const int g = i / D;
+    ob[i] = from_float<T>(s_acc[g * DP + i % D] / fmaxf(s_l[g], kMinDenom));
+  }
 }
 
 // ---------------------------------------------------------------------------
-// Kernel 7: causal GQA flash-attention forward (prefill).
+// Kernel 7 for f32 inputs: causal GQA flash-attention forward (prefill).
+// bf16 inputs, the serving path, take the tensor-core kernel of
+// flash_attention.cu; this one serves f32 compute.
 //
 // Replaces the TPU kernel flash_attention_pallas
 // (repro/kernels/flash_attention.py), which the port's prefill runs once
@@ -240,10 +260,10 @@ __global__ void __launch_bounds__(kThreads)
 // (B, S, Hkv, D).
 //
 // Bound on an H100: operations at long S.  The causal product is
-// 4*B*H*D*S(S+1)/2 flops (48 GFLOP at S=3072, H=20, D=128: ~49 us on the
-// bf16 tensor cores) against ~47 MB of q, k, v and out.  This first
-// version runs on the CUDA cores in f32 (mma.sync / wgmma and TMA are
-// later work), so it sits far above that bound.  Design: a block owns 64
+// 4*B*H*D*S(S+1)/2 flops (48 GFLOP at S=3072, H=20, D=128: 0.72 ms at the
+// 67 TFLOP/s of f32 outside the tensor cores) against ~94 MB of f32 q, k,
+// v and out.  It runs on the CUDA cores in f32, TF32 off, so f32 compute
+// keeps full f32 products.  Design: a block owns 64
 // query rows of one (b, kv head) -- TQ = 64 / G positions times the G
 // heads of the group, so the group shares every K/V tile, as the TPU
 // kernel flattens TQ*G rows.  It loops over 64-key tiles up to its last
@@ -259,26 +279,28 @@ __global__ void __launch_bounds__(kThreads)
 constexpr int kFlashRows = 64;
 constexpr int kFlashTile = 64;
 
-template <int D>
+template <int DP>
 size_t flash_smem_bytes() {
   const int R = kFlashRows, TK = kFlashTile;
-  return sizeof(float) * (static_cast<size_t>(R) * (D + 1) + TK * (D + 1) +
-                          TK * D + R * (TK + 1) + 3 * R);
+  return sizeof(float) * (static_cast<size_t>(R) * (DP + 1) + TK * (DP + 1) +
+                          TK * DP + R * (TK + 1) + 3 * R);
 }
 
-template <typename T, int D>
+template <int DP>
 __global__ void __launch_bounds__(kThreads)
-    flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ v, T* __restrict__ out,
-                           int S, int Hkv, int G, int TQ, float scale) {
+    flash_attention_kernel(const float* __restrict__ q,
+                           const float* __restrict__ k,
+                           const float* __restrict__ v,
+                           float* __restrict__ out, int S, int Hkv, int G,
+                           int TQ, int D, float scale) {
   constexpr int R = kFlashRows, TK = kFlashTile;
-  constexpr int LD = D + 1, LDP = TK + 1;
-  constexpr int DC = (D + 15) / 16;  // output columns a thread owns
+  constexpr int LD = DP + 1, LDP = TK + 1;
+  constexpr int DC = DP / 16;  // output columns a thread owns
   extern __shared__ float smem[];
   float* s_q = smem;              // R x LD, scaled
   float* s_k = s_q + R * LD;      // TK x LD
-  float* s_v = s_k + TK * LD;     // TK x D
-  float* s_p = s_v + TK * D;      // R x LDP: logits, then probabilities
+  float* s_v = s_k + TK * LD;     // TK x DP
+  float* s_p = s_v + TK * DP;     // R x LDP: logits, then probabilities
   float* s_m = s_p + R * LDP;     // R running max
   float* s_l = s_m + R;           // R running sum
   float* s_corr = s_l + R;        // R rescale of this tile
@@ -292,19 +314,19 @@ __global__ void __launch_bounds__(kThreads)
   const int rows = tq * G;
   const int GD = G * D;
   const size_t q_stride = static_cast<size_t>(Hkv) * GD;  // per position
-  const T* qb = q + (static_cast<size_t>(b) * S + q0) * q_stride +
-                static_cast<size_t>(h) * GD;
+  const float* qb = q + (static_cast<size_t>(b) * S + q0) * q_stride +
+                    static_cast<size_t>(h) * GD;
 
-  stage_rows<T, D, R>(
-      [=](int r) { return qb + (r / G) * q_stride + (r % G) * D; }, rows,
+  stage_rows<float, DP, R>(
+      [=](int r) { return qb + (r / G) * q_stride + (r % G) * D; }, rows, D,
       s_q, LD);
   for (int i = tid; i < R; i += kThreads) {
     s_m[i] = kNegInf;
     s_l[i] = 0.f;
   }
   __syncthreads();
-  for (int i = tid; i < R * D; i += kThreads) {
-    const int r = i / D, d = i % D;
+  for (int i = tid; i < R * DP; i += kThreads) {
+    const int r = i / DP, d = i % DP;
     s_q[r * LD + d] = r < rows ? s_q[r * LD + d] * scale : 0.f;
   }
 
@@ -321,9 +343,9 @@ __global__ void __launch_bounds__(kThreads)
   for (int k0 = 0; k0 <= q_last; k0 += TK) {
     const int n = min(TK, S - k0);
     __syncthreads();  // the previous tile's readers are done
-    stage_kv<T, D, TK>(k + kv_base + k0 * kv_stride,
-                       v + kv_base + k0 * kv_stride, kv_stride, n, s_k, LD,
-                       s_v);
+    stage_kv<float, DP, TK>(k + kv_base + k0 * kv_stride,
+                            v + kv_base + k0 * kv_stride, kv_stride, n, D,
+                            s_k, LD, s_v);
     __syncthreads();
 
     float lg[4][4];
@@ -332,7 +354,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int c = 0; c < 4; ++c) lg[a][c] = 0.f;
 #pragma unroll 8
-    for (int d = 0; d < D; ++d) {
+    for (int d = 0; d < DP; ++d) {
       float qa[4], kc[4];
 #pragma unroll
       for (int a = 0; a < 4; ++a) qa[a] = s_q[(tr + 16 * a) * LD + d];
@@ -387,28 +409,25 @@ __global__ void __launch_bounds__(kThreads)
       for (int a = 0; a < 4; ++a) pa[a] = s_p[(tr + 16 * a) * LDP + j];
 #pragma unroll
       for (int cc = 0; cc < DC; ++cc) {
-        const int d = tc + 16 * cc;
-        if (d < D) {
-          const float vv = s_v[j * D + d];
+        const float vv = s_v[j * DP + tc + 16 * cc];
 #pragma unroll
-          for (int a = 0; a < 4; ++a) acc[a][cc] = fmaf(pa[a], vv, acc[a][cc]);
-        }
+        for (int a = 0; a < 4; ++a) acc[a][cc] = fmaf(pa[a], vv, acc[a][cc]);
       }
     }
   }
 
-  T* ob = out + (static_cast<size_t>(b) * S + q0) * q_stride +
-          static_cast<size_t>(h) * GD;
+  float* ob = out + (static_cast<size_t>(b) * S + q0) * q_stride +
+              static_cast<size_t>(h) * GD;
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
     const int r = tr + 16 * a;
     if (r >= rows) continue;
     const float denom = fmaxf(s_l[r], kMinDenom);
-    T* orow = ob + (r / G) * q_stride + (r % G) * D;
+    float* orow = ob + (r / G) * q_stride + (r % G) * D;
 #pragma unroll
     for (int cc = 0; cc < DC; ++cc) {
       const int d = tc + 16 * cc;
-      if (d < D) orow[d] = from_float<T>(acc[a][cc] / denom);
+      if (d < D) orow[d] = acc[a][cc] / denom;
     }
   }
 }
@@ -434,58 +453,74 @@ float inv_sqrt(int d) {  // f32 of the double 1/sqrt(D), as the reference
   return static_cast<float>(1.0 / std::sqrt(static_cast<double>(d)));
 }
 
-template <typename T, int D>
+template <typename T, int DP>
 int launch_decode(const void* q, const void* k, const void* v,
                   const void* length, void* out, int B, int Hkv, int S, int G,
-                  cudaStream_t stream) {
-  const size_t smem = decode_smem_bytes<D>(G);
-  auto kernel = decode_attention_kernel<T, D>;
+                  int D, cudaStream_t stream) {
+  const size_t smem = decode_smem_bytes<DP>(G);
+  auto kernel = decode_attention_kernel<T, DP>;
   const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   kernel<<<dim3(Hkv, B), kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int*>(length),
-      static_cast<T*>(out), S, Hkv, G, inv_sqrt(D));
+      static_cast<T*>(out), S, Hkv, G, D, inv_sqrt(D));
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <int DP>
 int launch_flash(const void* q, const void* k, const void* v, void* out,
-                 int B, int S, int Hkv, int G, cudaStream_t stream) {
-  const size_t smem = flash_smem_bytes<D>();
-  auto kernel = flash_attention_kernel<T, D>;
+                 int B, int S, int Hkv, int G, int D, cudaStream_t stream) {
+  const size_t smem = flash_smem_bytes<DP>();
+  auto kernel = flash_attention_kernel<DP>;
   const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const int TQ = kFlashRows / G;
   const int tiles = (S + TQ - 1) / TQ;
   kernel<<<dim3(tiles, Hkv, B), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), S, Hkv, G, TQ,
-      inv_sqrt(D));
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), S, Hkv, G, TQ,
+      D, inv_sqrt(D));
   return cudaGetLastError();
+}
+
+// The padded width an instance is built for: 16, 32, 64, 128 or 256
+// (0 for a head_dim outside [1, 256]).
+int padded_width(int D) {
+  if (D < 1 || D > 256) return 0;
+  int dp = 16;
+  while (dp < D) dp *= 2;
+  return dp;
 }
 
 template <typename T>
 int decode_by_dim(int D, const void* q, const void* k, const void* v,
                   const void* length, void* out, int B, int Hkv, int S, int G,
                   cudaStream_t s) {
-  switch (D) {
-    case 8: return launch_decode<T, 8>(q, k, v, length, out, B, Hkv, S, G, s);
-    case 16: return launch_decode<T, 16>(q, k, v, length, out, B, Hkv, S, G, s);
-    case 64: return launch_decode<T, 64>(q, k, v, length, out, B, Hkv, S, G, s);
-    case 128: return launch_decode<T, 128>(q, k, v, length, out, B, Hkv, S, G, s);
-    default: return cudaErrorInvalidValue;
+  switch (padded_width(D)) {
+    case 16:
+      return launch_decode<T, 16>(q, k, v, length, out, B, Hkv, S, G, D, s);
+    case 32:
+      return launch_decode<T, 32>(q, k, v, length, out, B, Hkv, S, G, D, s);
+    case 64:
+      return launch_decode<T, 64>(q, k, v, length, out, B, Hkv, S, G, D, s);
+    case 128:
+      return launch_decode<T, 128>(q, k, v, length, out, B, Hkv, S, G, D, s);
+    case 256:
+      return launch_decode<T, 256>(q, k, v, length, out, B, Hkv, S, G, D, s);
+    default:
+      return cudaErrorInvalidValue;
   }
 }
 
-template <typename T>
 int flash_by_dim(int D, const void* q, const void* k, const void* v,
                  void* out, int B, int S, int Hkv, int G, cudaStream_t s) {
-  switch (D) {
-    case 8: return launch_flash<T, 8>(q, k, v, out, B, S, Hkv, G, s);
-    case 16: return launch_flash<T, 16>(q, k, v, out, B, S, Hkv, G, s);
-    case 64: return launch_flash<T, 64>(q, k, v, out, B, S, Hkv, G, s);
-    case 128: return launch_flash<T, 128>(q, k, v, out, B, S, Hkv, G, s);
+  switch (padded_width(D)) {
+    case 16: return launch_flash<16>(q, k, v, out, B, S, Hkv, G, D, s);
+    case 32: return launch_flash<32>(q, k, v, out, B, S, Hkv, G, D, s);
+    case 64: return launch_flash<64>(q, k, v, out, B, S, Hkv, G, D, s);
+    case 128: return launch_flash<128>(q, k, v, out, B, S, Hkv, G, D, s);
+    case 256: return launch_flash<256>(q, k, v, out, B, S, Hkv, G, D, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -509,17 +544,14 @@ extern "C" int decode_attention(const void* q, const void* k, const void* v,
   return cudaErrorInvalidValue;
 }
 
-// The wrapper (repro_torch/kernels/flash_attention.py) checks shapes and
-// contiguity; G > kFlashRows is refused here.
+// f32 only (bf16 takes flash_attention.cu).  The wrapper
+// (repro_torch/kernels/flash_attention.py) checks shapes and contiguity;
+// G > kFlashRows is refused here.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* out, int B, int S, int H, int Hkv, int D,
-                               int dtype, void* stream) {
+                               void* stream) {
   if (Hkv <= 0 || H % Hkv != 0 || H / Hkv > kFlashRows)
     return cudaErrorInvalidValue;
-  const int G = H / Hkv;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return flash_by_dim<float>(D, q, k, v, out, B, S, Hkv, G, s);
-  if (dtype == 1)
-    return flash_by_dim<__nv_bfloat16>(D, q, k, v, out, B, S, Hkv, G, s);
-  return cudaErrorInvalidValue;
+  return flash_by_dim(D, q, k, v, out, B, S, Hkv, H / Hkv,
+                      static_cast<cudaStream_t>(stream));
 }

@@ -13,6 +13,10 @@ Layouts are the reference's: q (B, H, D), k and v (B, S, Hkv, D), length
 head ``h // G`` with ``G = H // Hkv``.  Lengths are clamped to [0, S]; a
 row with no valid key gives zeros.
 
+Any head_dim from 1 to 256 is taken: the kernel is built for a padded
+width (16, 32, 64, 128 or 256) and zero-fills the columns past D in
+shared memory, as the reference pads D with zeros.
+
 A wrapper launches its kernel only for CUDA tensors and raises on what the
 kernel does not take; a group of G = H // Hkv query heads too large for
 one block's shared memory is refused by the launcher, whose status raises
@@ -33,7 +37,7 @@ launches = {"decode_attention": 0}
 # can show that no plain twin took the kernel's place
 twin_calls = {"decode_attention_twin": 0}
 
-HEAD_DIMS = (8, 16, 64, 128)     # head dims the kernels are built for
+MAX_HEAD_DIM = 256               # widest head the kernels 6-7 take
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 NEG_BIG = -1.0e30                # the TPU kernels' finite mask
 MIN_DENOM = 1e-30                # their clamp of the softmax divisor
@@ -68,9 +72,9 @@ def _check_common(q, k, v, head_dim: int) -> None:
     if q.dtype not in DTYPE_CODE:
         raise ValueError(f"the kernel takes float32 or bfloat16; got "
                          f"{q.dtype}")
-    if head_dim not in HEAD_DIMS:
-        raise ValueError(f"the kernel takes head_dim in {HEAD_DIMS}; got "
-                         f"{head_dim}")
+    if not 1 <= head_dim <= MAX_HEAD_DIM:
+        raise ValueError(f"the kernel takes head_dim in [1, {MAX_HEAD_DIM}]; "
+                         f"got {head_dim}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")

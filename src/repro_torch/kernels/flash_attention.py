@@ -1,20 +1,25 @@
 """Kernel 7: causal GQA flash-attention forward (the prefill), with its
 plain PyTorch twin.
 
-``flash_attention_cuda`` launches ``flash_attention`` of
-``csrc/attention.cu`` (built by :mod:`repro_torch.kernels._build`), which
-replaces the TPU kernel
-``repro.kernels.flash_attention.flash_attention_pallas``.  The port's
-prefill (:func:`repro_torch.models.attention._causal_core`) runs it once
-per layer.  The kernel never builds the S x S logits and takes any S
-unpadded.
+``flash_attention_cuda`` replaces the TPU kernel
+``repro.kernels.flash_attention.flash_attention_pallas`` and routes by
+dtype: bfloat16, the serving path, launches ``flash_attention_bf16`` of
+``csrc/flash_attention.cu`` (tensor cores, TMA); float32 launches
+``flash_attention`` of ``csrc/attention.cu`` (f32 on the CUDA cores).
+Both are built by :mod:`repro_torch.kernels._build`.  The port's prefill
+(:func:`repro_torch.models.attention._causal_core`) runs it once per layer.
+The kernels never build the S x S logits and take any S unpadded and any
+head_dim from 1 to 256: the bf16 kernel reads a head width that is a
+multiple of 8 as it is (TMA zero-fills the rest of its 64-column boxes),
+and the wrapper pads any other width with zeros to the next multiple of 8
+(:func:`_padded_head_dim`), as the reference pads D.
 
 Layouts are the reference's: q and out (B, S, H, D), k and v
 (B, S, Hkv, D); query head ``h`` belongs to kv head ``h // G``.
 
 A wrapper launches its kernel only for CUDA tensors and raises on what the
 kernel does not take; more than 64 query heads per kv head is refused by
-the launcher, whose status raises too.  The twin is for tensors on the
+the launchers, whose status raises too.  The twin is for tensors on the
 CPU, or for a caller that asks for the plain path.  Each kernel launch
 adds one to :data:`launches`.
 """
@@ -23,8 +28,9 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.nn.functional as nnf
 
-from .decode_attention import DTYPE_CODE, MIN_DENOM, NEG_BIG, _check_common
+from .decode_attention import MAX_HEAD_DIM, MIN_DENOM, NEG_BIG, _check_common
 from .dissatisfaction import _check, _ptr, _raise_on
 
 # kernel name -> launches since the last reset_launches()
@@ -59,6 +65,15 @@ def flash_attention_twin(q, k, v) -> torch.Tensor:
     return out.reshape(b, s, h, d).to(q.dtype)
 
 
+def _padded_head_dim(d: int) -> int:
+    """The head width the bf16 kernel reads for head_dim ``d``: the next
+    multiple of 8 (its tensor maps need rows of whole 16-byte vectors)."""
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"the kernel takes head_dim in [1, {MAX_HEAD_DIM}]; "
+                         f"got {d}")
+    return -(-d // 8) * 8
+
+
 def flash_attention_cuda(q, k, v) -> torch.Tensor:
     """Kernel 7 on the card: (B, S, H, D) causal attention output."""
     from . import _build
@@ -76,14 +91,22 @@ def flash_attention_cuda(q, k, v) -> torch.Tensor:
     _check("k", k, q.dtype, (b, s, hkv, d), device)
     _check("v", v, q.dtype, (b, s, hkv, d), device)
     _check_common(q, k, v, d)
-    out = torch.empty_like(q)
     if b == 0 or s == 0 or h == 0:
-        return out
-    lib = _build.library("attention")
-    stream = torch.cuda.current_stream(device).cuda_stream
-    status = lib.flash_attention(
-        _ptr(q), _ptr(k), _ptr(v), _ptr(out), b, s, h, hkv, d,
-        DTYPE_CODE[q.dtype], ctypes.c_void_p(stream))
+        return torch.empty_like(q)
+    stream = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+    if q.dtype == torch.float32:
+        out = torch.empty_like(q)
+        status = _build.library("attention").flash_attention(
+            _ptr(q), _ptr(k), _ptr(v), _ptr(out), b, s, h, hkv, d, stream)
+    else:
+        width = _padded_head_dim(d)
+        if width != d:
+            q, k, v = (nnf.pad(t, (0, width - d)) for t in (q, k, v))
+        out = torch.empty_like(q)
+        status = _build.library("flash_attention").flash_attention_bf16(
+            _ptr(q), _ptr(k), _ptr(v), _ptr(out), b, s, h, hkv, width, d,
+            stream)
+        out = out[..., :d].contiguous() if width != d else out
     _raise_on(status, "flash_attention")
     launches["flash_attention"] += 1
     return out

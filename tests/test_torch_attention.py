@@ -21,7 +21,8 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.decode_attention import (decode_attention_cuda,
                                                   decode_attention_twin)
-from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+from repro_torch.kernels.flash_attention import (_padded_head_dim,
+                                                 flash_attention_cuda,
                                                  flash_attention_twin)
 
 TOL = {"float32": 3e-4, "bfloat16": 3e-2}
@@ -50,12 +51,13 @@ def _close(got, want, dtype="float32"):
 
 @pytest.mark.parametrize("b,h,hkv,d", [
     (1, 4, 4, 64), (2, 8, 2, 64), (3, 8, 1, 128), (2, 7, 7, 64),
-    (2, 8, 4, 16),
+    (2, 8, 4, 16), (2, 8, 4, 112), (1, 4, 2, 37),
 ])
 @pytest.mark.parametrize("s", [100, 512, 1000])
 def test_decode_twin_matches_pallas(b, h, hkv, d, s):
     """The twin == the TPU kernel in interpret mode (the reference's decode
-    shapes, G in {1, 2, 4, 8}) and the reference oracle."""
+    shapes, G in {1, 2, 4, 8}, zamba2-7b's head_dim 112 and an odd one)
+    and the reference oracle."""
     (jq, jk, jv), (tq, tk, tv) = _inputs(
         [(b, h, d), (b, s, hkv, d), (b, s, hkv, d)], seed=b * 131 + s)
     lens = np.random.default_rng(s).integers(1, s + 1, b).astype(np.int32)
@@ -109,10 +111,12 @@ def test_decode_port_oracle_matches_reference_oracle():
 @pytest.mark.parametrize("b,s,h,hkv,d", [
     (1, 128, 4, 2, 64), (2, 200, 8, 2, 64), (1, 384, 6, 1, 128),
     (1, 96, 7, 7, 64), (2, 64, 4, 4, 32), (1, 100, 8, 1, 16),
+    (1, 130, 4, 2, 112), (1, 77, 6, 3, 37),
 ])
 def test_flash_twin_matches_pallas(b, s, h, hkv, d):
     """The twin == the TPU kernel in interpret mode (the reference's flash
-    shapes plus G=8) and the reference oracle."""
+    shapes plus G=8, zamba2-7b's head_dim 112 and an odd one) and the
+    reference oracle."""
     (jq, jk, jv), (tq, tk, tv) = _inputs(
         [(b, s, h, d), (b, s, hkv, d), (b, s, hkv, d)], seed=b * 997 + s)
     got = flash_attention_twin(tq, tk, tv)
@@ -141,6 +145,20 @@ def test_flash_twin_is_causal():
     out2 = flash_attention_twin(q, k2, v2)
     assert torch.equal(out1[:, :-1], out2[:, :-1])
     assert not torch.equal(out1[:, -1], out2[:, -1])
+
+
+@pytest.mark.parametrize("d,width", [(1, 8), (8, 8), (100, 104),
+                                     (112, 112), (256, 256)])
+def test_padded_head_dim(d, width):
+    """The bf16 kernel 7 reads rows of whole 16-byte vectors: other head
+    widths are padded with zeros to the next multiple of 8."""
+    assert _padded_head_dim(d) == width
+
+
+@pytest.mark.parametrize("d", [0, 257])
+def test_padded_head_dim_refuses_widths_past_the_kernels(d):
+    with pytest.raises(ValueError, match="head_dim"):
+        _padded_head_dim(d)
 
 
 def test_flash_port_oracle_matches_reference_oracle():

@@ -252,7 +252,9 @@ def _normal(card, shape, seed, dtype):
 @pytest.mark.parametrize("b,h,hkv,d,s", [(4, 32, 8, 128, 1000),
                                          (3, 8, 1, 64, 777),
                                          (2, 4, 4, 16, 130),
-                                         (2, 8, 2, 8, 65)])
+                                         (2, 8, 2, 8, 65),
+                                         (2, 8, 2, 112, 300),
+                                         (2, 8, 4, 32, 200)])
 def test_decode_attention_kernel_matches_twin(card, b, h, hkv, d, s, dtype):
     """Kernel 6 vs its twin and the ``-inf``-masked oracle, ragged lengths
     1..S and one above S (clamped); values past a row's length change
@@ -290,10 +292,15 @@ def test_decode_attention_kernel_matches_twin(card, b, h, hkv, d, s, dtype):
 @pytest.mark.parametrize("b,s,h,hkv,d", [(2, 1000, 32, 8, 128),
                                          (1, 333, 8, 1, 64),
                                          (2, 70, 4, 4, 16),
-                                         (1, 129, 14, 2, 8)])
+                                         (1, 129, 14, 2, 8),
+                                         (1, 3072, 4, 4, 112),
+                                         (2, 63, 8, 2, 96),
+                                         (1, 1, 4, 1, 112),
+                                         (1, 130, 14, 2, 100)])
 def test_flash_attention_kernel_matches_twin(card, b, s, h, hkv, d, dtype):
-    """Kernel 7 vs its twin and the ``-inf``-masked oracle at unpadded S,
-    G in {1, 4, 7, 8}."""
+    """Kernel 7 vs its twin and the ``-inf``-masked oracle at unpadded S
+    (1 to 3072), G in {1, 4, 7, 8}, head_dim 8 to 128 (112, 96 and 100 not
+    powers of two, 100 not a multiple of 8)."""
     from repro_torch.kernels import flash_attention as F
     from repro_torch.kernels import ref as R
     q = _normal(card, (b, s, h, d), s + 4, dtype)
@@ -321,16 +328,16 @@ def test_attention_kernels_refuse_what_they_do_not_take(card):
     with pytest.raises(ValueError, match="contiguous"):
         A.decode_attention_cuda(q, k.transpose(0, 1).contiguous()
                                 .transpose(0, 1), k, length)
+    wide_q = torch.zeros((2, 4, 264), device=card)
+    wide_k = torch.zeros((2, 10, 2, 264), device=card)
     with pytest.raises(ValueError, match="head_dim"):
-        A.decode_attention_cuda(q[..., :32].contiguous(),
-                                k[..., :32].contiguous(),
-                                k[..., :32].contiguous(), length)
+        A.decode_attention_cuda(wide_q, wide_k, wide_k, length)
     with pytest.raises(ValueError, match="int32"):
         A.decode_attention_cuda(q, k, k, length.long())
     with pytest.raises(ValueError, match="CUDA"):
         A.decode_attention_cuda(q.cpu(), k.cpu(), k.cpu(), length.cpu())
-    qf = torch.zeros((1, 10, 4, 96), device=card)
-    kf = torch.zeros((1, 10, 2, 96), device=card)
+    qf = torch.zeros((1, 10, 4, 264), device=card)
+    kf = torch.zeros((1, 10, 2, 264), device=card)
     with pytest.raises(ValueError, match="head_dim"):
         F.flash_attention_cuda(qf, kf, kf)
     with pytest.raises(ValueError, match="bfloat16"):
@@ -339,10 +346,12 @@ def test_attention_kernels_refuse_what_they_do_not_take(card):
                                kf[..., :64].contiguous())
     # groups too large for one block: the launchers refuse them, the
     # wrappers raise, and the next launch is unaffected
-    with pytest.raises(RuntimeError, match="failed to launch"):
-        F.flash_attention_cuda(torch.zeros((1, 4, 65, 8), device=card),
-                               torch.zeros((1, 4, 1, 8), device=card),
-                               torch.zeros((1, 4, 1, 8), device=card))
+    for dtype in (torch.float32, torch.bfloat16):
+        with pytest.raises(RuntimeError, match="failed to launch"):
+            F.flash_attention_cuda(
+                torch.zeros((1, 4, 65, 8), device=card, dtype=dtype),
+                torch.zeros((1, 4, 1, 8), device=card, dtype=dtype),
+                torch.zeros((1, 4, 1, 8), device=card, dtype=dtype))
     with pytest.raises(RuntimeError, match="failed to launch"):
         A.decode_attention_cuda(torch.zeros((1, 130, 128), device=card),
                                 torch.zeros((1, 8, 1, 128), device=card),
