@@ -84,10 +84,14 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      only calls the kernel's C entry point; kernel 7's f32 instance at the
      same shape;
  17. kernel 8 (the SSD scan) vs its twin on the card — (B, L, H, P, N) =
-     (1, 3072, 64, 64, 128) with bf16 x/bm/cm (the serving shape), (2,
-     1001, ...) in f32 and (2, 777, ...) from an initial state, with the
-     Mamba2 initialisation's decays, within a tolerance relative to the
-     largest value; refused launches raise, and the next one is clean;
+     (1, 3072, 64, 64, 128) with bf16 x/bm/cm (the serving shape; on the
+     tensor-core kernel) from zeros and from an initial state, (2, 1001,
+     ...) in f32 (the CUDA-core kernel), (2, 777, ...) from an initial
+     state, L = 1, 255, 256 and 257 around the bf16 kernel's chunk, P = 33
+     with N = 24 and N = 5 (padded by the wrapper), with the Mamba2
+     initialisation's decays, within a tolerance relative to the largest
+     value; refused launches raise (the bf16 kernel's width limit among
+     them), and the next one is clean in f32 and in bf16;
  18. full-width SSM serving — mamba2-1.3b's published config (48 layers,
      d_model 2048, 64 heads of 64, state 128, chunk 256, vocab 50280,
      tied embeddings, f32 parameters, bf16 compute), weights from
@@ -101,7 +105,10 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      stated tolerance; one bf16 prefill of 3072 tokens and one decode step
      on both paths, no further apart than bf16 compute moves the plain
      path from f32 compute on the same input; kernel 8's times at the
-     serving shape beside its bound and its twin.
+     serving shape beside its bound (bytes; its products at the bf16
+     tensor-core peak) and its twin, the device time of its three passes
+     from CUDA events around a loop that only calls the C entry point, each
+     pass's share by the profiler, and the f32 instance at the same shape.
 
 Each path's launch counts are set to 0 just before it and read just after.
 The line before the last two is the kernels' JSON record; then the card's
@@ -186,10 +193,19 @@ BF16_STEP_TOL = 5e-2
 SSM_ARCH = "mamba2-1.3b"
 SSD_CHUNK = 256             # the config's ssm_chunk: the twin's chunk
 # (B, L, H, P, N, dtype of x/bm/cm, initial state) of phase 17; the first
-# is the serving shape (the longest prompt at mamba2-1.3b's widths)
+# is the serving shape (the longest prompt at mamba2-1.3b's widths).  The
+# bf16 kernel's chunk is 256 steps: L = 1, 255, 256, 257 straddle it; P =
+# 33, N = 24 and N = 5 are widths the wrapper pads to multiples of 8
 SSD_SHAPES = ((1, 3072, 64, 64, 128, torch.bfloat16, False),
               (2, 1001, 64, 64, 128, torch.float32, False),
-              (2, 777, 64, 64, 128, torch.bfloat16, True))
+              (2, 777, 64, 64, 128, torch.bfloat16, True),
+              (1, 3072, 64, 64, 128, torch.bfloat16, True),
+              (2, 500, 8, 33, 24, torch.bfloat16, True),
+              (1, 300, 8, 64, 5, torch.bfloat16, False),
+              (1, 1, 64, 64, 128, torch.bfloat16, True),
+              (1, 255, 64, 64, 128, torch.bfloat16, True),
+              (1, 256, 64, 64, 128, torch.bfloat16, False),
+              (1, 257, 64, 64, 128, torch.bfloat16, True))
 # kernel 8 vs twin: max |diff| <= SSD_TOL * max(1, max |want|), for y and
 # the final state each -- the reference's tolerance between two chunkings
 # of the scan (tests/test_kernels.py), against the largest value; bf16
@@ -1708,6 +1724,7 @@ def phase_ssd_kernel(S8):
         f"state each")
     x, dt, a, bm, cm = _ssd_inputs(1, 70, 2, 16, 8, torch.float32, 0)
     big = torch.zeros((1, 70, 512), device="cuda")
+    wide = torch.zeros((1, 70, 2, 72), device="cuda")
     refusals = {
         "a float16 input": lambda: S8.ssd_scan_cuda(
             x.half(), dt, a, bm.half(), cm.half()),
@@ -1716,6 +1733,9 @@ def phase_ssd_kernel(S8):
             x.transpose(1, 2).contiguous().transpose(1, 2), dt, a, bm, cm),
         "N = 512, past a block's shared memory (launcher)": lambda:
             S8.ssd_scan_cuda(x, dt, a, big, big),
+        "bf16 with P = 72, past the bf16 kernel's widths (wrapper)": lambda:
+            S8.ssd_scan_cuda(wide.bfloat16(), dt, a, bm.bfloat16(),
+                             cm.bfloat16()),
     }
     for what, call in refusals.items():
         try:
@@ -1724,10 +1744,14 @@ def phase_ssd_kernel(S8):
             log(f"  refused {what}: {exc}")
         else:
             fail(f"kernel 8 launched on {what}")
-    # a refused launch leaves no error behind for the next one
-    got = S8.ssd_scan_cuda(x, dt, a, bm, cm)
-    want = S8.ssd_scan_twin(x, dt, a, bm, cm, SSD_CHUNK)
-    _ssd_err(got[0], want[0], "kernel 8 after a refused launch")
+    # a refused launch leaves no error behind for the next one, f32 or bf16
+    for xs, bs, cs in ((x, bm, cm),
+                       (x.bfloat16(), bm.bfloat16(), cm.bfloat16())):
+        got = S8.ssd_scan_cuda(xs, dt, a, bs, cs)
+        want = S8.ssd_scan_twin(xs, dt, a, bs, cs, SSD_CHUNK)
+        torch.cuda.synchronize()
+        _ssd_err(got[0], want[0], f"kernel 8 ({xs.dtype}) after a refused "
+                 f"launch")
     return err
 
 
@@ -1752,9 +1776,11 @@ def phase_ssm_serving(S8, card):
              f"{SERVE_REQUESTS}")
     if any(twins.values()):
         fail(f"a twin ran on the serving path: {twins}")
+    per_call = S8.DEVICE_LAUNCHES[getattr(torch, cfg.compute_dtype)]
     log(f"  checks: every request has {SERVE_NEW} tokens, every logit "
         f"finite, kernel 8 launched {cfg.num_layers} x {prefills} = {want} "
-        f"times, twin calls {twins['ssd_scan_twin']}")
+        f"times ({per_call} device launches each, its passes: "
+        f"{per_call * want}), twin calls {twins['ssd_scan_twin']}")
     _profile_decode(engine)
     return params, engine, {"stats": stats, "launches": launches}
 
@@ -1796,17 +1822,46 @@ def phase_ssm_paths(S8, params, engine, card):
     floor = [_max_rel(p, f) for p, f in zip(out["plain"], out["plain f32"])]
     agree = [bool(greedy(k) == greedy(p))
              for k, p in zip(out["kernel"], out["plain"])]
+    # each run's top two prefill logits: an argmax that differs between
+    # the paths is a near-tie when their gap is inside the bf16 floor
+    top2 = {run: [round(v, 4) for v in torch.topk(o[0][0], 2).values.tolist()]
+            + [int(torch.argmax(o[0][0]))] for run, o in out.items()}
     log(f"  bf16 prefill of {SERVE_PROMPT[1]} tokens, then one decode step: "
         f"kernel vs plain path max |diff| / max(1, max|logit|) = "
         f"{rel[0]:.3e}, {rel[1]:.3e}; bf16 floor (plain path, bf16 vs f32 "
         f"compute) {floor[0]:.3e}, {floor[1]:.3e}; argmax equal (prefill, "
-        f"step): {agree}")
+        f"step): {agree}; prefill top two logits and argmax by run: {top2}")
     if not all(r <= f for r, f in zip(rel, floor)):
         fail("the bf16 prefill or step differs between the kernel and "
              "plain paths by more than bf16 compute moves the plain path")
 
+    return ssd_times(S8, card)
+
+
+# the bf16 kernel's passes, by the names of their CUDA kernels
+SSD_PASSES = ("ssd_chunk_states_kernel", "ssd_state_passing_kernel",
+              "ssd_chunk_outputs_kernel")
+
+
+def ssd_times(S8, card):
+    """Kernel 8 at the serving shape: the wrapper, its twin and a loop of C
+    entry-point calls (the device time of all three passes) by CUDA events,
+    in turns; each pass's share by the profiler; the f32 instance."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.dissatisfaction import _ptr
+    from torch.profiler import ProfilerActivity, profile
     b, seq, h, p, n, dtype, _ = SSD_SHAPES[0]
     x, dt, a, bm, cm = _ssd_inputs(b, seq, h, p, n, dtype, 19)
+    lib = _build.library("ssd_scan_bf16")
+    y = torch.empty((b, seq, h, p), device="cuda")
+    final = torch.empty((b, h, p, n), device="cuda")
+    work = torch.empty(lib.ssd_scan_bf16_work_bytes(b, seq, h, p, n),
+                       dtype=torch.uint8, device="cuda")
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    args = (_ptr(x), _ptr(dt), _ptr(a), _ptr(bm), _ptr(cm), _ptr(None),
+            _ptr(y), _ptr(final), _ptr(work), b, seq, h, p, n, stream)
 
     def k8_call():
         S8.ssd_scan_cuda(x, dt, a, bm, cm)
@@ -1814,23 +1869,66 @@ def phase_ssm_paths(S8, params, engine, card):
     def p8_call():
         S8.ssd_scan_twin(x, dt, a, bm, cm, SSD_CHUNK)
 
-    calls = {"k8": (k8_call, 20), "p8": (p8_call, 5)}
+    def raw8():
+        lib.ssd_scan_bf16(*args)
+
+    # the launch-only loop skips the wrapper's checks: check once here that
+    # one call launches and matches the wrapper bitwise
+    status = lib.ssd_scan_bf16(*args)
+    want = S8.ssd_scan_cuda(x, dt, a, bm, cm)
+    torch.cuda.synchronize()
+    if status != 0 or not (torch.equal(y, want[0])
+                           and torch.equal(final, want[1])):
+        fail("kernel 8's launch-only call differs from its wrapper's")
+    del want
+    calls = {"k8": (k8_call, 20), "d8": (raw8, 20), "p8": (p8_call, 5)}
     t = {name: [] for name in calls}
     for order in (list(calls), list(reversed(calls))):
         for name in order:
             fn, iters = calls[name]
             t[name].append(cuda_ms(fn, iters, warmup=2))
     ms = {name: float(np.mean(v)) for name, v in t.items()}
-    dev = kernel_device_us({"ssd_scan": (k8_call, 10)})["ssd_scan"]
+    reps = 10
+    raw8()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            raw8()
+        torch.cuda.synchronize()
+    passes = {name: [0, 0.0] for name in SSD_PASSES}
+    for e in prof.key_averages():
+        for name in SSD_PASSES:
+            if name in e.key:
+                passes[name][0] += e.count
+                passes[name][1] += e.self_device_time_total
+    # the profiler may miss some launches of a window: each pass's time is
+    # its mean over the launches it recorded
+    mean = {name: us / count for name, (count, us) in passes.items()
+            if count}
+    if len(mean) == len(SSD_PASSES):
+        total_us = sum(mean.values())
+        shares = ", ".join(
+            f"{name} {us:.2f} us ({us / total_us:.3f}; {passes[name][0]} of "
+            f"{reps} launches recorded)" for name, us in mean.items())
+    else:
+        shares = f"the profiler recorded no launch of some pass: {passes}"
+    xf, bf, cf = x.float(), bm.float(), cm.float()
+    f32_ms = cuda_ms(lambda: S8.ssd_scan_cuda(xf, dt, a, bf, cf), 5,
+                     warmup=1)
+    del xf, bf, cf
+    log(f"  ssd_scan f32 instance (ssd_scan.cu, CUDA cores) at (B, L, H, P, "
+        f"N)=({b}, {seq}, {h}, {p}, {n}): {f32_ms:.5f} ms per call [{card}]")
     elt = torch.finfo(dtype).bits // 8
     byt = (elt * (b * seq * h * p + 2 * b * seq * n)     # x, bm, cm
            + 4 * (b * seq * h + h)                       # dt, a
            + 4 * (b * seq * h * p + b * h * p * n))      # y, final state
     flops = 4 * b * seq * h * p * n   # increment and read-out, per state
     t_bytes = 1e3 * byt / PEAK_BYTES_S
-    t_ops = 1e3 * flops / PEAK_F32_FLOPS
+    t_ops = 1e3 * flops / (PEAK_BF16_FLOPS if dtype == torch.bfloat16
+                           else PEAK_F32_FLOPS)
     rec = {"name": "ssd_scan", "route": "cuda",
-           "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+           "source": "src/repro_torch/kernels/csrc/ssd_scan_bf16.cu",
            "replaces": "src/repro/kernels/ssd_scan.py:81",
            "ms": ms["k8"], "plain_ms": ms["p8"],
            "bound_ms": max(t_bytes, t_ops),
@@ -1838,10 +1936,15 @@ def phase_ssm_paths(S8, params, engine, card):
            "library_ms": None}
     log(f"  ssd_scan at (B, L, H, P, N)=({b}, {seq}, {h}, {p}, {n}), "
         f"{str(dtype)[6:]} x/bm/cm: kernel {ms['k8']:.5f} ms per call "
-        f"({'not measured' if dev is None else f'{dev:.2f} us'} on the "
-        f"device), twin {ms['p8']:.5f} ms, bound {rec['bound_ms']:.5f} ms "
-        f"({rec['bound_by']}; {byt / 1e6:.2f} MB, {flops / 1e9:.2f} "
-        f"GFLOP f32), library: none (no single PyTorch call) [{card}]")
+        f"({1e3 * ms['d8']:.2f} us on the device by CUDA events around a "
+        f"loop that only calls the C entry point, "
+        f"{S8.DEVICE_LAUNCHES[dtype]} device launches per call; passes by "
+        f"the profiler: {shares}), "
+        f"twin {ms['p8']:.5f} ms, bound {rec['bound_ms']:.5f} ms "
+        f"({rec['bound_by']}; {byt / 1e6:.2f} MB, {flops / 1e9:.2f} GFLOP "
+        f"at {'bf16' if dtype == torch.bfloat16 else 'f32'} peak); kernel / "
+        f"bound {ms['k8'] / rec['bound_ms']:.2f}; library: none (no single "
+        f"PyTorch call) [{card}]")
     return rec
 
 

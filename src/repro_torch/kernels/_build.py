@@ -66,10 +66,19 @@ SIGNATURES = {
     },
     "ssd_scan": {
         # x, dt, a, bm, cm, init_state, y, final_state, B, L, H, P, N,
-        # dtype, stream
-        "ssd_scan": [_F] * 8 + [_I] * 6 + [_F],
+        # stream (float32)
+        "ssd_scan": [_F] * 8 + [_I] * 5 + [_F],
+    },
+    "ssd_scan_bf16": {
+        # x, dt, a, bm, cm, init_state, y, final_state, work, B, L, H, P, N,
+        # stream (bfloat16 x, bm, cm)
+        "ssd_scan_bf16": [_F] * 9 + [_I] * 5 + [_F],
+        # B, L, H, P, N -> bytes of `work`
+        "ssd_scan_bf16_work_bytes": [_I] * 5,
     },
 }
+# entry points that return something else than a status
+RESTYPES = {"ssd_scan_bf16_work_bytes": ctypes.c_longlong}
 
 _libraries: dict[str, ctypes.CDLL] = {}
 # source stem -> the compiler's report (ptxas registers / shared memory)
@@ -133,6 +142,6 @@ def library(stem: str = "dissatisfaction") -> ctypes.CDLL:
         for name, argtypes in SIGNATURES[stem].items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            fn.restype = RESTYPES.get(name, ctypes.c_int)
         _libraries[stem] = lib
     return _libraries[stem]

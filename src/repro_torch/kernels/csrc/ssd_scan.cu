@@ -1,10 +1,12 @@
-// Kernel 8 for Hopper (sm_90a), plain C interface: the Mamba2 SSD
-// (state-space duality) chunked scan of the SSM prefill.
+// Kernel 8 for f32 inputs on Hopper (sm_90a), plain C interface: the Mamba2
+// SSD (state-space duality) chunked scan of the SSM prefill, on the CUDA
+// cores.  bf16 inputs, the serving path, take the tensor-core kernel of
+// ssd_scan_bf16.cu.
 //
 // Replaces the TPU kernel ssd_scan_pallas (repro/kernels/ssd_scan.py),
 // which the port's ssm_block runs once per layer.  Layouts are the
-// reference's: x (B, L, H, P) in f32 or bf16, dt (B, L, H) f32, a (H,) f32
-// and negative, bm and cm (B, L, N) in x's type and shared by all heads
+// reference's: x (B, L, H, P) f32, dt (B, L, H) f32, a (H,) f32 and
+// negative, bm and cm (B, L, N) f32 and shared by all heads
 // (n_groups = 1), an optional initial state (B, H, P, N) f32 (zeros when
 // null); out y (B, L, H, P) f32 and the final state (B, H, P, N) f32.
 //
@@ -28,9 +30,9 @@
 // Bound on an H100: operations.  Every formulation adds each step's rank-1
 // increment into the (P, N) state and reads the state back through C: 4 *
 // P * N flops per (step, head), 6.44 GFLOP at the serving shape (B=1,
-// L=3072, H=64, P=64, N=128; ~96 us at 67 TFLOP/s f32) against ~80 MB of
-// inputs and outputs (~24 us at 3.35 TB/s).  This first version runs on
-// the CUDA cores in f32 (mma.sync / wgmma and TMA are later work).
+// L=3072, H=64, P=64, N=128; ~96 us at 67 TFLOP/s f32) against ~107 MB of
+// f32 inputs and outputs (~32 us at 3.35 TB/s).  This kernel runs on the
+// CUDA cores in f32.
 // Design: one block per (b, h, tile of kRows = 32 state rows): a row p of
 // y needs only row p of the state and of x, so the tiles are independent
 // and B=1, H=64, P=64 gives 128 blocks for the 132 SMs, at the price of
@@ -45,11 +47,10 @@
 // reads of different rows on different banks.
 //
 // Every entry point launches on the caller's stream, allocates nothing,
-// and returns cudaGetLastError() (or cudaErrorInvalidValue for a type it
-// has no instance for, and the runtime's error, cleared, for an N whose
-// tiles do not fit a block's shared memory), so the wrapper can raise.
+// and returns cudaGetLastError() (or cudaErrorInvalidValue for a shape it
+// does not take, and the runtime's error, cleared, for an N whose tiles do
+// not fit a block's shared memory), so the wrapper can raise.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -59,22 +60,16 @@ constexpr int kThreads = 256;
 constexpr int kChunk = 64;  // sub-chunk: steps per pass
 constexpr int kRows = 32;   // state rows (p) per block
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
 size_t smem_bytes(int N) {
   const size_t ldn = static_cast<size_t>(N) + 1;
   return sizeof(float) * (2 * kChunk * ldn + kChunk * kRows +
                           kChunk * (kChunk + 1) + kRows * ldn + 4 * kChunk);
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-    ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
-                    const float* __restrict__ a, const T* __restrict__ bm,
-                    const T* __restrict__ cm,
+    ssd_scan_kernel(const float* __restrict__ x, const float* __restrict__ dt,
+                    const float* __restrict__ a, const float* __restrict__ bm,
+                    const float* __restrict__ cm,
                     const float* __restrict__ init_state,
                     float* __restrict__ y, float* __restrict__ final_state,
                     int L, int H, int P, int N) {
@@ -114,8 +109,8 @@ __global__ void __launch_bounds__(kThreads)
       const int r = i / N, n = i % N;
       float vb = 0.f, vc = 0.f;
       if (r < len) {
-        vb = to_float(bm[row0 * N + i]);
-        vc = to_float(cm[row0 * N + i]);
+        vb = bm[row0 * N + i];
+        vc = cm[row0 * N + i];
       }
       s_b[r * ldn + n] = vb;
       s_c[r * ldn + n] = vc;
@@ -123,7 +118,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int i = tid; i < Q * R; i += kThreads) {
       const int r = i / R, p = i % R;
       s_x[i] = r < len && p < rows
-                   ? to_float(x[((row0 + r) * H + h) * P + p0 + p])
+                   ? x[((row0 + r) * H + h) * P + p0 + p]
                    : 0.f;
     }
     __syncthreads();
@@ -265,13 +260,12 @@ __global__ void __launch_bounds__(kThreads)
     final_state[st_base + i] = s_st[(i / N) * ldn + i % N];
 }
 
-template <typename T>
 int launch(const void* x, const void* dt, const void* a, const void* bm,
            const void* cm, const void* init_state, void* y,
            void* final_state, int B, int L, int H, int P, int N,
            cudaStream_t stream) {
   const size_t smem = smem_bytes(N);
-  auto kernel = ssd_scan_kernel<T>;
+  auto kernel = ssd_scan_kernel;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -283,31 +277,24 @@ int launch(const void* x, const void* dt, const void* a, const void* bm,
   }
   const dim3 grid((P + kRows - 1) / kRows, H, B);
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const float*>(dt),
-      static_cast<const float*>(a), static_cast<const T*>(bm),
-      static_cast<const T*>(cm), static_cast<const float*>(init_state),
+      static_cast<const float*>(x), static_cast<const float*>(dt),
+      static_cast<const float*>(a), static_cast<const float*>(bm),
+      static_cast<const float*>(cm), static_cast<const float*>(init_state),
       static_cast<float*>(y), static_cast<float*>(final_state), L, H, P, N);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype (of x, bm and cm): 0 = float32, 1 = bfloat16.  init_state may be
-// null.  Shapes and contiguity are the wrapper's to check
-// (repro_torch/kernels/ssd_scan.py); B, H, P, N >= 1 and L >= 1.
+// x, dt, a, bm, cm, init_state (or null), y, final_state f32.  Shapes and
+// contiguity are the wrapper's to check (repro_torch/kernels/ssd_scan.py);
+// B, H, P, N >= 1 and L >= 1.
 extern "C" int ssd_scan(const void* x, const void* dt, const void* a,
                         const void* bm, const void* cm,
                         const void* init_state, void* y, void* final_state,
-                        int B, int L, int H, int P, int N, int dtype,
-                        void* stream) {
+                        int B, int L, int H, int P, int N, void* stream) {
   if (B <= 0 || L <= 0 || H <= 0 || P <= 0 || N <= 0)
     return cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch<float>(x, dt, a, bm, cm, init_state, y, final_state, B, L,
-                         H, P, N, s);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(x, dt, a, bm, cm, init_state, y,
-                                 final_state, B, L, H, P, N, s);
-  return cudaErrorInvalidValue;
+  return launch(x, dt, a, bm, cm, init_state, y, final_state, B, L, H, P, N,
+                static_cast<cudaStream_t>(stream));
 }

@@ -178,8 +178,8 @@ def ssd_scan(x, dt, a, bm, cm, chunk: int, init_state=None):
     """Mamba2 SSD scan: x (B, L, H, P), dt (B, L, H), a (H,), bm and cm
     (B, L, N) -> (y (B, L, H, P) f32, final state (B, H, P, N) f32), from
     ``init_state`` (zeros when None).  CUDA tensors go to kernel 8, which
-    walks its own sub-chunk length (``chunk`` does not change the
-    function), CPU tensors to its twin at ``chunk``."""
+    walks its own chunk length (``chunk`` does not change the function),
+    CPU tensors to its twin at ``chunk``."""
     if _on_card(x):
         return ssd_scan_cuda(x, dt, a, bm, cm, init_state)
     return ssd_scan_twin(x, dt, a, bm, cm, chunk, init_state)

@@ -405,6 +405,15 @@ def _ssd_close(got, want):
     (2, 100, 3, 8, 5, 16, torch.float32, False),
     (1, 37, 2, 33, 16, 16, torch.float32, False),         # L < the sub-chunk
     (3, 130, 4, 32, 16, 16, torch.bfloat16, False),
+    # the bf16 kernel: widths the wrapper pads to multiples of 8, and L
+    # around its 256-step chunk
+    (2, 500, 8, 33, 24, 256, torch.bfloat16, True),
+    (1, 300, 4, 64, 5, 256, torch.bfloat16, False),
+    (1, 1, 4, 64, 128, 256, torch.bfloat16, True),
+    (1, 255, 4, 64, 128, 256, torch.bfloat16, True),
+    (1, 256, 4, 64, 128, 256, torch.bfloat16, True),
+    (1, 257, 4, 64, 128, 256, torch.bfloat16, True),
+    (1, 300, 2, 64, 256, 256, torch.bfloat16, True),
 ])
 def test_ssd_scan_kernel_matches_twin(card, b, seq, h, p, n, chunk, dtype,
                                       mamba):
@@ -463,3 +472,22 @@ def test_ssd_scan_kernel_refuses_what_it_does_not_take(card):
     got = S.ssd_scan_cuda(x, dt, a, bm, cm)
     want = S.ssd_scan_twin(x, dt, a, bm, cm, 32)
     _ssd_close(got[0], want[0])
+
+
+@pytest.mark.gpu
+def test_ssd_scan_bf16_refuses_past_its_widths(card):
+    """The bf16 kernel takes P <= 64 and N <= 256 (the f32 one takes
+    more): the wrapper refuses wider bf16 inputs, and the next launch is
+    unaffected."""
+    from repro_torch.kernels import ssd_scan as S
+    for p, n in ((72, 16), (16, 264)):
+        x, dt, a, bm, cm = _ssd_inputs(card, 1, 70, 2, p, n, torch.bfloat16,
+                                       p + n)
+        with pytest.raises(ValueError, match="the bf16 kernel takes P"):
+            S.ssd_scan_cuda(x, dt, a, bm, cm)
+    x, dt, a, bm, cm = _ssd_inputs(card, 1, 70, 2, 16, 8, torch.bfloat16, 2)
+    got = S.ssd_scan_cuda(x, dt, a, bm, cm)
+    want = S.ssd_scan_twin(x, dt, a, bm, cm, 32)
+    torch.cuda.synchronize()
+    _ssd_close(got[0], want[0])
+    _ssd_close(got[1], want[1])

@@ -62,3 +62,20 @@ def test_every_port_module_is_listed():
                 "serving", "serving.engine", "serving.sampler", "launch",
                 "launch.serve"):
         assert f"repro_torch.{mod}" in names
+
+
+def test_build_signatures_cover_every_entry_point():
+    """Each ``csrc/*.cu`` is one library, and ``_build.SIGNATURES`` binds
+    functions that its source defines, every one declared ``extern "C"``
+    on its own line among them."""
+    import re
+    sys.path.insert(0, str(REPO / "src"))
+    from repro_torch.kernels import _build
+    sources = {src.stem: src.read_text()
+               for src in sorted(_build.CSRC.glob("*.cu"))}
+    assert set(sources) == set(_build.SIGNATURES)
+    for stem, text in sources.items():
+        for name in _build.SIGNATURES[stem]:
+            assert re.search(rf"\b{name}\(", text), (stem, name)
+        for name in re.findall(r'extern "C" [\w ]+?\b(\w+)\(', text):
+            assert name in _build.SIGNATURES[stem], (stem, name)

@@ -105,9 +105,9 @@ def _build_all(names, out: Path) -> dict:
         cu = out / f"{name}.cu"
         cu.write_text(_variant_source(src, VARIANTS[name][1]))
         procs[name] = subprocess.Popen(
-            [_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(out / f"{name}.so"),
-             str(cu)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)
+            [_build.nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o",
+             str(out / f"{name}.so"), str(cu)], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
     fns = {}
     for name, proc in procs.items():
         log, _ = proc.communicate()
