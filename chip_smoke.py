@@ -57,10 +57,16 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      element bitwise its looped run; then the same cases under ``mode="multimove"``
      (unbounded, move_prob 0.5, ε=1e-3, 24 sweeps), each bitwise a lone
      ``refine_sweeps`` with the generator derived for its index;
- 13. attention kernels vs twins on the card — kernel 6 (decode attention)
-     at (B, H, Hkv, D, S) = (16, 20, 20, 128, 4096), (4, 32, 8, 128,
-     1000), (3, 8, 1, 64, 777) and (16, 32, 32, 112, 4096) with ragged
-     lengths (one above S, clamped); kernel 7 (causal flash attention; bf16
+ 13. attention kernels vs twins on the card — kernel 6 (decode attention,
+     split over the cache's positions) at (B, H, Hkv, D, S) = (16, 20, 20,
+     128, 4096), (4, 32, 8, 128, 1000), (3, 8, 1, 64, 777) and (16, 32, 32,
+     112, 4096) with ragged lengths (one above S, clamped), then at G = 7
+     (8, 56, 8, 128, 4096), G = 8 with D = 112 (4, 64, 8, 112, 1500), G =
+     48 (4, 48, 1, 128, 4096) and D = 100 (8, 16, 16, 100, 777; the
+     instance without TMA)
+     with lengths of one split, on a split border and one past it, 1 and
+     above S, each called twice and the two outputs equal bitwise; kernel
+     7 (causal flash attention; bf16
      on the tensor-core kernel, f32 on the CUDA-core one) at (B, S, H, Hkv,
      D) = (1, 3072, 20, 20, 128), (2, 1000, 32, 8, 128), (1, 333, 8, 1,
      64), (1, 3072, 32, 32, 112), (2, 1000, 32, 8, 96) and (1, 130, 14, 2,
@@ -81,8 +87,10 @@ Phases (any failure exits non-zero; there is no CPU fallback):
  16. attention times — kernels 6 and 7 at the serving shapes beside their
      bound, their twins and ``scaled_dot_product_attention``, measured in
      turns; the device time of each from CUDA events around a loop that
-     only calls the kernel's C entry point; kernel 7's f32 instance at the
-     same shape;
+     only calls the kernel's C entry point; kernel 6's split, blocks
+     launched and live blocks at the serving shape, and its time at
+     yi-34b's heads (16, 56, 8, 128, 4096) for information; kernel 7's f32
+     instance at the same shape;
  17. kernel 8 (the SSD scan) vs its twin on the card — (B, L, H, P, N) =
      (1, 3072, 64, 64, 128) with bf16 x/bm/cm (the serving shape; on the
      tensor-core kernel) from zeros and from an initial state, (2, 1001,
@@ -175,6 +183,15 @@ PARITY_MAX_LEN = 1024
 # bf16 kernel 7 then pads it)
 DECODE_SHAPES = ((16, 20, 20, 128, 4096), (4, 32, 8, 128, 1000),
                  (3, 8, 1, 64, 777), (16, 32, 32, 112, 4096))
+# kernel 6's split-S cases of phase 13, (B, H, Hkv, D, S): G = 7 (yi-34b's
+# head layout), G = 8 at zamba2-7b's D = 112, G = 48 (granite-34b's: each
+# warp keeps several (row, part) states in shared memory), and D = 100 (no
+# multiple of 8: the instance that stages without TMA); each row's length
+# is one split, a split border, one past it, 1, above S, S, ...
+DECODE_SPLIT_SHAPES = ((8, 56, 8, 128, 4096), (4, 64, 8, 112, 1500),
+                       (4, 48, 1, 128, 4096), (8, 16, 16, 100, 777))
+# kernel 6 at a GQA shape in phase 16, for information: yi-34b's heads
+DECODE_GQA_SHAPE = (16, 56, 8, 128, 4096)
 FLASH_SHAPES = ((1, 3072, 20, 20, 128), (2, 1000, 32, 8, 128),
                 (1, 333, 8, 1, 64), (1, 3072, 32, 32, 112),
                 (2, 1000, 32, 8, 96), (1, 130, 14, 2, 100))
@@ -1239,6 +1256,10 @@ def phase_sparse_fleet(D, card):
 # phases 13-16: dense LM serving (qwen1.5-4b at full width, kernels 6-7)
 # ---------------------------------------------------------------------------
 
+def _sm_count() -> int:
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
 def _attn_inputs(shapes, seed, dtype):
     g = torch.Generator(device="cuda").manual_seed(seed)
     return [torch.randn(s, generator=g, device="cuda").to(dtype)
@@ -1278,6 +1299,26 @@ def phase_attention_kernels(A, F):
             log(f"  kernel 6 (B, H, Hkv, D, S)={(b, h, hkv, d, s)} {name}, "
                 f"lengths {int(lens.min())}..{int(lens.max())}: max |diff| "
                 f"{e:.3e}")
+        for b, h, hkv, d, s in DECODE_SPLIT_SHAPES:
+            split = A.split_size(s, b * hkv, _sm_count())
+            lens = np.asarray([split, 2 * split, 2 * split + 1, 1, s + 77, s,
+                               3 * split - 1, split + 1][:b], np.int32)
+            q, k, v = _attn_inputs([(b, h, d), (b, s, hkv, d),
+                                    (b, s, hkv, d)], b + s + 2, dtype)
+            length = torch.as_tensor(lens, device="cuda")
+            got = A.decode_attention_cuda(q, k, v, length)
+            again = A.decode_attention_cuda(q, k, v, length)
+            want = A.decode_attention_twin(q, k, v, length)
+            torch.cuda.synchronize()
+            e = _attn_err(got, want, dtype, f"kernel 6 {(b, h, hkv, d, s)}")
+            if not torch.equal(got, again):
+                fail(f"kernel 6 {(b, h, hkv, d, s)} {name}: two calls differ")
+            err6 = max(err6, e)
+            live = hkv * int(sum(-(-min(n, s) // split) for n in lens))
+            log(f"  kernel 6 (B, H, Hkv, D, S)={(b, h, hkv, d, s)} {name}, "
+                f"G={h // hkv}, split {split} ({-(-s // split)} splits, "
+                f"{live} live blocks), lengths {lens.tolist()}: max |diff| "
+                f"{e:.3e}; a second call bitwise equal")
         for b, s, h, hkv, d in FLASH_SHAPES:
             q, k, v = _attn_inputs([(b, s, h, d), (b, s, hkv, d),
                                     (b, s, hkv, d)], b + s + 1, dtype)
@@ -1567,9 +1608,15 @@ def phase_attention_times(A, F, engine, card):
     mask = (torch.arange(s, device="cuda")[None, :] < length[:, None])[
         :, None, None, :]
     out6 = torch.empty_like(q6)
-    lib6 = _build.library("attention").decode_attention
-    args6 = (_ptr(q6), _ptr(k6), _ptr(v6), _ptr(length), _ptr(out6), b,
-             cfg_h, hkv, s, d, 1, stream)
+    lib6 = _build.library("decode_attention").decode_attention
+    args6, scratch6 = A.decode_attention_args(q6, k6, v6, length, out6)
+    split6 = A.split_size(s, b * hkv, _sm_count())
+    lens6 = length.tolist()
+    log(f"  kernel 6 at the serving shape: split {split6} positions, "
+        f"{-(-s // split6)} splits, {-(-s // split6) * hkv * b} blocks "
+        f"launched, {hkv * sum(-(-n // split6) for n in lens6)} live (lengths "
+        f"{min(lens6)}..{max(lens6)}, {valid} valid positions), "
+        f"{_sm_count()} SMs")
 
     def k6_call():
         A.decode_attention_cuda(q6, k6, v6, length)
@@ -1627,6 +1674,21 @@ def phase_attention_times(A, F, engine, card):
     ms = {name: float(np.mean(v)) for name, v in t.items()}
     prof_us = kernel_device_us({"decode_attention": (raw6, 20),
                                 "flash_attention": (raw7, 20)}, attempts=1)
+    gb, gh, ghkv, gd, gs = DECODE_GQA_SHAPE
+    qg, kg, vg = _attn_inputs([(gb, gh, gd), (gb, gs, ghkv, gd),
+                               (gb, gs, ghkv, gd)], 56, torch.bfloat16)
+    lg = length[:gb] if gb <= b else length.repeat(-(-gb // b))[:gb]
+    gqa_ms = cuda_ms(lambda: A.decode_attention_cuda(qg, kg, vg, lg), 50,
+                     warmup=2)
+    gvalid = int(torch.clamp(lg, max=gs).sum())
+    gbound = 1e3 * 2 * (2 * gvalid * ghkv * gd + 2 * gb * gh * gd) \
+        / PEAK_BYTES_S
+    gsplit = A.split_size(gs, gb * ghkv, _sm_count())
+    log(f"  decode_attention at yi-34b's heads (B, H, Hkv, D, S)="
+        f"{DECODE_GQA_SHAPE}, bf16, the serving lengths ({gvalid} valid "
+        f"positions, split {gsplit}): {gqa_ms:.5f} ms per call, bound "
+        f"{gbound:.5f} ms (bytes), bound share {gbound / gqa_ms:.4f} [{card}]")
+    del qg, kg, vg
     q32, k32, v32 = (x.float() for x in (q7, k7, v7))
     f32_ms = cuda_ms(lambda: F.flash_attention_cuda(q32, k32, v32), 5,
                      warmup=1)
@@ -1640,7 +1702,7 @@ def phase_attention_times(A, F, engine, card):
     ops7 = 4 * cfg_h * d * s7 * (s7 + 1) // 2
     out = []
     for name, byt, flops, key, source, line, shape in (
-            ("decode_attention", bytes6, ops6, "6", "attention.cu",
+            ("decode_attention", bytes6, ops6, "6", "decode_attention.cu",
              "decode_attention.py:70",
              f"(B, H, Hkv, D, S)=({b}, {cfg_h}, {hkv}, {d}, {s}), bf16, "
              f"{valid} valid positions"),

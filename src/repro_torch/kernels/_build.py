@@ -54,10 +54,13 @@ SIGNATURES = {
         "sweep_candidates_from_edges": [_F] * 13 + [_I, _I, _I, _I, _F],
     },
     "attention": {
-        # q, k, v, length, out, B, H, Hkv, S, D, dtype, stream
-        "decode_attention": [_F] * 5 + [_I] * 6 + [_F],
         # q, k, v, out, B, S, H, Hkv, D, stream (float32 only)
         "flash_attention": [_F] * 4 + [_I] * 5 + [_F],
+    },
+    "decode_attention": {
+        # q, k, v, length, out, partial, ticket, B, H, Hkv, S, D, split,
+        # dtype, stream
+        "decode_attention": [_F] * 7 + [_I] * 7 + [_F],
     },
     "flash_attention": {
         # q, k, v, out, B, S, H, Hkv, D (stored width), head_dim, stream

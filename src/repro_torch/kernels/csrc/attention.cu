@@ -1,6 +1,7 @@
-// Attention kernels for Hopper (sm_90a), plain C interface: kernel 6
-// (one-token decode attention over a KV cache) and kernel 7 (causal
-// flash-attention forward, the prefill).
+// Kernel 7 for f32 inputs on Hopper (sm_90a), plain C interface: causal
+// flash-attention forward (the prefill) on the CUDA cores.  bf16 inputs go
+// to flash_attention.cu's tensor-core kernel; kernel 6 (decode attention)
+// lives in decode_attention.cu.
 //
 // Built by repro_torch/kernels/_build.py (nvcc -gencode
 // arch=compute_90a,code=sm_90a -O3 -fmad=false -shared) and bound with
@@ -8,22 +9,18 @@
 // refinement kernels; the dot products here ask for fused multiply-adds
 // explicitly (fmaf), which that flag leaves alone.
 //
-// Kernel 6 is templated on the element type (float or __nv_bfloat16),
-// kernel 7 here takes float (bf16 inputs go to flash_attention.cu's
-// tensor-core kernel); both are instantiated on a padded head width DP in
-// {16, 32, 64, 128, 256} and take the real head_dim D <= DP at run time,
-// as the reference pads D.  Rows are read in 16-byte vectors where D
-// fills whole vectors, element by element otherwise, and widened to float
-// in shared memory with zeros in columns D..DP-1, which add nothing to a
-// dot product; columns past D are never stored.  All arithmetic is f32;
-// the output is rounded once to the element type.  The mask value and the
-// divisor clamp are the TPU kernels': -1e30 and max(l, 1e-30).
+// The kernel is instantiated on a padded head width DP in {16, 32, 64,
+// 128, 256} and takes the real head_dim D <= DP at run time, as the
+// reference pads D.  Rows are read in 16-byte vectors where D fills whole
+// vectors, element by element otherwise, and staged in shared memory with
+// zeros in columns D..DP-1, which add nothing to a dot product; columns
+// past D are never stored.  The mask value and the divisor clamp are the
+// TPU kernel's: -1e30 and max(l, 1e-30).
 //
-// Every entry point launches on the caller's stream, allocates nothing,
-// and returns cudaGetLastError() (or cudaErrorInvalidValue for a type or
-// head dimension it has no instance for), so the wrapper can raise.
+// The entry point launches on the caller's stream, allocates nothing, and
+// returns cudaGetLastError() (or cudaErrorInvalidValue for a head
+// dimension it has no instance for), so the wrapper can raise.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -35,20 +32,6 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr float kNegInf = -1.0e30f;
 constexpr float kMinDenom = 1e-30f;
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -64,21 +47,21 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// Stage rows [0, n) of a TILE-row tile into shared memory as float: row r
-// of the source starts at row_ptr(r) (d contiguous elements) and lands at
-// dst + r * ld, columns d..DP-1 as zeros.  Where d is a whole number of
-// 16-byte vectors (rows then start 16-byte aligned), every load of the
-// tile is issued before the first store, so a thread keeps kIters 16-byte
-// loads in flight per array; other widths are read element by element.
-// Rows n..TILE-1 are left as they are.
-template <typename T, int DP, int TILE, typename RowPtr>
+// Stage rows [0, n) of a TILE-row tile into shared memory: row r of the
+// source starts at row_ptr(r) (d contiguous floats) and lands at dst + r *
+// ld, columns d..DP-1 as zeros.  Where d is a whole number of 16-byte
+// vectors (rows then start 16-byte aligned), every load of the tile is
+// issued before the first store, so a thread keeps kIters 16-byte loads in
+// flight per array; other widths are read element by element.  Rows
+// n..TILE-1 are left as they are.
+template <int DP, int TILE, typename RowPtr>
 __device__ __forceinline__ void stage_rows(RowPtr row_ptr, int n, int d,
                                            float* dst, int ld) {
-  constexpr int kVec = 16 / static_cast<int>(sizeof(T));  // per 16 bytes
+  constexpr int kVec = 4;  // floats per 16 bytes
   if (d % kVec != 0) {
     for (int i = threadIdx.x; i < n * DP; i += kThreads) {
       const int r = i / DP, c = i % DP;
-      dst[r * ld + c] = c < d ? to_float(row_ptr(r)[c]) : 0.f;
+      dst[r * ld + c] = c < d ? row_ptr(r)[c] : 0.f;
     }
     return;
   }
@@ -98,155 +81,26 @@ __device__ __forceinline__ void stage_rows(RowPtr row_ptr, int n, int d,
   for (int it = 0; it < kIters; ++it) {
     const int i = threadIdx.x + it * kThreads;
     const int r = i / kPerRow;
-    if (i < kTotal && r < n) {
-      const T* elems = reinterpret_cast<const T*>(&buf[it]);
+    if (i < kTotal && r < n) {  // ld may be odd: store float by float
+      const float* elems = reinterpret_cast<const float*>(&buf[it]);
       float* out = dst + r * ld + (i % kPerRow) * kVec;
 #pragma unroll
-      for (int e = 0; e < kVec; ++e) out[e] = to_float(elems[e]);
+      for (int e = 0; e < kVec; ++e) out[e] = elems[e];
     }
   }
 }
 
 // K and V rows [s0, s0 + n) of one (batch, kv head): consecutive
 // positions are `stride` elements apart.
-template <typename T, int DP, int TILE>
-__device__ __forceinline__ void stage_kv(const T* __restrict__ k,
-                                         const T* __restrict__ v,
+template <int DP, int TILE>
+__device__ __forceinline__ void stage_kv(const float* __restrict__ k,
+                                         const float* __restrict__ v,
                                          size_t stride, int n, int d,
                                          float* s_k, int ldk, float* s_v) {
-  stage_rows<T, DP, TILE>([=](int r) { return k + r * stride; }, n, d, s_k,
-                          ldk);
-  stage_rows<T, DP, TILE>([=](int r) { return v + r * stride; }, n, d, s_v,
-                          DP);
-}
-
-// ---------------------------------------------------------------------------
-// Kernel 6: one-token GQA decode attention over a KV cache.
-//
-// Replaces the TPU kernel decode_attention_pallas
-// (repro/kernels/decode_attention.py), which the port's decode step runs
-// once per layer.  Layouts are the reference's: q (B, H, D), k and v
-// (B, S, Hkv, D), length (B,) int32, out (B, H, D); query head h*G + g
-// belongs to kv head h.
-//
-// Bound on an H100: bytes.  Each (b, kv head) must read its K and V rows
-// up to length[b] once; at the serving engine's shape (B=16, Hkv=20,
-// D=128, bf16, lengths up to 4096) that is ~300 MB, ~90 us at 3.35 TB/s,
-// against ~2 flops per byte.  Design: one block per (kv head, b), 256
-// threads, a loop over S in tiles of 64 positions that stops at
-// length[b] (clamped to S, as XLA clamps the reference's cache write), so
-// nothing past the valid prefix is read -- the TPU kernel streams all of
-// S and masks.  Each tile's K and V are staged once in shared memory as
-// float, the G query rows of the kv head (pre-scaled by 1/sqrt(D)) stay
-// in shared memory, and the online softmax runs in f32: one thread per
-// (query row, key) logit, one warp per query row for the running max and
-// sum, one thread per (query row, d) output accumulator.  A row with no
-// valid key (length 0) gives zeros.  Split-S (flash-decoding) with a
-// combine pass is later work; B*Hkv = 320 blocks fill the 132 SMs here.
-// ---------------------------------------------------------------------------
-
-constexpr int kDecodeTile = 64;
-
-template <int DP>
-size_t decode_smem_bytes(int G) {
-  const int TS = kDecodeTile;
-  return sizeof(float) * (static_cast<size_t>(TS) * (DP + 1) + TS * DP +
-                          2 * G * DP + G * TS + 3 * G);
-}
-
-template <typename T, int DP>
-__global__ void __launch_bounds__(kThreads)
-    decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                            const T* __restrict__ v,
-                            const int* __restrict__ length,
-                            T* __restrict__ out, int S, int Hkv, int G, int D,
-                            float scale) {
-  constexpr int TS = kDecodeTile;
-  constexpr int LDK = DP + 1;  // odd row stride: a warp's key rows hit 32 banks
-  extern __shared__ float smem[];
-  float* s_k = smem;               // TS x LDK
-  float* s_v = s_k + TS * LDK;     // TS x DP
-  float* s_q = s_v + TS * DP;      // G x DP, scaled
-  float* s_acc = s_q + G * DP;     // G x DP
-  float* s_p = s_acc + G * DP;     // G x TS: logits, then probabilities
-  float* s_m = s_p + G * TS;       // G running max
-  float* s_l = s_m + G;            // G running sum
-  float* s_corr = s_l + G;         // G rescale of this tile
-
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int len = min(max(length[b], 0), S);
-  const int GD = G * D, GDP = G * DP;
-  const T* qb = q + (static_cast<size_t>(b) * Hkv + h) * GD;
-  for (int i = tid; i < GDP; i += kThreads) {
-    const int g = i / DP, c = i % DP;
-    s_q[i] = c < D ? to_float(qb[g * D + c]) * scale : 0.f;
-    s_acc[i] = 0.f;
-  }
-  for (int g = tid; g < G; g += kThreads) {
-    s_m[g] = kNegInf;
-    s_l[g] = 0.f;
-  }
-  const size_t stride = static_cast<size_t>(Hkv) * D;
-  const size_t base = static_cast<size_t>(b) * S * stride +
-                      static_cast<size_t>(h) * D;
-
-  for (int j0 = 0; j0 < len; j0 += TS) {
-    const int n = min(TS, len - j0);
-    stage_kv<T, DP, TS>(k + base + j0 * stride, v + base + j0 * stride,
-                        stride, n, D, s_k, LDK, s_v);
-    __syncthreads();
-    for (int i = tid; i < G * TS; i += kThreads) {
-      const int g = i / TS, j = i % TS;
-      float logit = kNegInf;
-      if (j < n) {
-        const float* qr = s_q + g * DP;
-        const float* kr = s_k + j * LDK;
-        float dot = 0.f;
-#pragma unroll
-        for (int d = 0; d < DP; ++d) dot = fmaf(qr[d], kr[d], dot);
-        logit = dot;
-      }
-      s_p[i] = logit;
-    }
-    __syncthreads();
-    for (int g = warp; g < G; g += kWarps) {
-      float* pr = s_p + g * TS;
-      float mx = kNegInf;
-      for (int j = lane; j < n; j += 32) mx = fmaxf(mx, pr[j]);
-      mx = warp_max(mx);
-      const float m_old = s_m[g];
-      const float m_new = fmaxf(m_old, mx);
-      float sum = 0.f;
-      for (int j = lane; j < TS; j += 32) {
-        const float p = j < n ? expf(pr[j] - m_new) : 0.f;
-        pr[j] = p;
-        sum += p;
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float c = expf(m_old - m_new);
-        s_corr[g] = c;
-        s_l[g] = s_l[g] * c + sum;
-        s_m[g] = m_new;
-      }
-    }
-    __syncthreads();
-    for (int i = tid; i < GDP; i += kThreads) {
-      const int g = i / DP, d = i % DP;
-      const float* pr = s_p + g * TS;
-      float a = s_acc[i] * s_corr[g];
-      for (int j = 0; j < n; ++j) a = fmaf(pr[j], s_v[j * DP + d], a);
-      s_acc[i] = a;
-    }
-    __syncthreads();
-  }
-  __syncthreads();
-  T* ob = out + (static_cast<size_t>(b) * Hkv + h) * GD;
-  for (int i = tid; i < GD; i += kThreads) {
-    const int g = i / D;
-    ob[i] = from_float<T>(s_acc[g * DP + i % D] / fmaxf(s_l[g], kMinDenom));
-  }
+  stage_rows<DP, TILE>([=](int r) { return k + r * stride; }, n, d, s_k,
+                       ldk);
+  stage_rows<DP, TILE>([=](int r) { return v + r * stride; }, n, d, s_v,
+                       DP);
 }
 
 // ---------------------------------------------------------------------------
@@ -317,7 +171,7 @@ __global__ void __launch_bounds__(kThreads)
   const float* qb = q + (static_cast<size_t>(b) * S + q0) * q_stride +
                     static_cast<size_t>(h) * GD;
 
-  stage_rows<float, DP, R>(
+  stage_rows<DP, R>(
       [=](int r) { return qb + (r / G) * q_stride + (r % G) * D; }, rows, D,
       s_q, LD);
   for (int i = tid; i < R; i += kThreads) {
@@ -343,7 +197,7 @@ __global__ void __launch_bounds__(kThreads)
   for (int k0 = 0; k0 <= q_last; k0 += TK) {
     const int n = min(TK, S - k0);
     __syncthreads();  // the previous tile's readers are done
-    stage_kv<float, DP, TK>(k + kv_base + k0 * kv_stride,
+    stage_kv<DP, TK>(k + kv_base + k0 * kv_stride,
                             v + kv_base + k0 * kv_stride, kv_stride, n, D,
                             s_k, LD, s_v);
     __syncthreads();
@@ -453,21 +307,6 @@ float inv_sqrt(int d) {  // f32 of the double 1/sqrt(D), as the reference
   return static_cast<float>(1.0 / std::sqrt(static_cast<double>(d)));
 }
 
-template <typename T, int DP>
-int launch_decode(const void* q, const void* k, const void* v,
-                  const void* length, void* out, int B, int Hkv, int S, int G,
-                  int D, cudaStream_t stream) {
-  const size_t smem = decode_smem_bytes<DP>(G);
-  auto kernel = decode_attention_kernel<T, DP>;
-  const cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<dim3(Hkv, B), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const int*>(length),
-      static_cast<T*>(out), S, Hkv, G, D, inv_sqrt(D));
-  return cudaGetLastError();
-}
-
 template <int DP>
 int launch_flash(const void* q, const void* k, const void* v, void* out,
                  int B, int S, int Hkv, int G, int D, cudaStream_t stream) {
@@ -493,26 +332,6 @@ int padded_width(int D) {
   return dp;
 }
 
-template <typename T>
-int decode_by_dim(int D, const void* q, const void* k, const void* v,
-                  const void* length, void* out, int B, int Hkv, int S, int G,
-                  cudaStream_t s) {
-  switch (padded_width(D)) {
-    case 16:
-      return launch_decode<T, 16>(q, k, v, length, out, B, Hkv, S, G, D, s);
-    case 32:
-      return launch_decode<T, 32>(q, k, v, length, out, B, Hkv, S, G, D, s);
-    case 64:
-      return launch_decode<T, 64>(q, k, v, length, out, B, Hkv, S, G, D, s);
-    case 128:
-      return launch_decode<T, 128>(q, k, v, length, out, B, Hkv, S, G, D, s);
-    case 256:
-      return launch_decode<T, 256>(q, k, v, length, out, B, Hkv, S, G, D, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
-
 int flash_by_dim(int D, const void* q, const void* k, const void* v,
                  void* out, int B, int S, int Hkv, int G, cudaStream_t s) {
   switch (padded_width(D)) {
@@ -526,23 +345,6 @@ int flash_by_dim(int D, const void* q, const void* k, const void* v,
 }
 
 }  // namespace
-
-// dtype: 0 = float32, 1 = bfloat16.  Shapes and contiguity are the
-// wrapper's to check (repro_torch/kernels/decode_attention.py).
-extern "C" int decode_attention(const void* q, const void* k, const void* v,
-                                const void* length, void* out, int B, int H,
-                                int Hkv, int S, int D, int dtype,
-                                void* stream) {
-  if (Hkv <= 0 || H % Hkv != 0) return cudaErrorInvalidValue;
-  const int G = H / Hkv;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return decode_by_dim<float>(D, q, k, v, length, out, B, Hkv, S, G, s);
-  if (dtype == 1)
-    return decode_by_dim<__nv_bfloat16>(D, q, k, v, length, out, B, Hkv, S,
-                                        G, s);
-  return cudaErrorInvalidValue;
-}
 
 // f32 only (bf16 takes flash_attention.cu).  The wrapper
 // (repro_torch/kernels/flash_attention.py) checks shapes and contiguity;

@@ -2,8 +2,8 @@
 PyTorch twin.
 
 ``decode_attention_cuda`` launches ``decode_attention`` of
-``csrc/attention.cu`` (built by :mod:`repro_torch.kernels._build`), which
-replaces the TPU kernel
+``csrc/decode_attention.cu`` (built by :mod:`repro_torch.kernels._build`),
+which replaces the TPU kernel
 ``repro.kernels.decode_attention.decode_attention_pallas``.  The port's
 decode step (:func:`repro_torch.models.attention.decode_attention_step`)
 runs it once per layer.
@@ -13,9 +13,19 @@ Layouts are the reference's: q (B, H, D), k and v (B, S, Hkv, D), length
 head ``h // G`` with ``G = H // Hkv``.  Lengths are clamped to [0, S]; a
 row with no valid key gives zeros.
 
+The kernel splits S: :func:`split_size` sets the positions per split from
+S, B * Hkv and the card's SM count, never from ``length``, so the call
+adds no host sync.  With more than one split each live split writes f32
+partials to scratch allocated here, and the last split of a (row, kv
+head) to finish combines them in split order, found by an integer ticket
+in a per-device buffer of zeros (:func:`_tickets`) that every launch
+leaves at zero; calls on one device must not run concurrently on two
+streams.  The result is bitwise the same from run to run.
+
 Any head_dim from 1 to 256 is taken: the kernel is built for a padded
-width (16, 32, 64, 128 or 256) and zero-fills the columns past D in
-shared memory, as the reference pads D with zeros.
+width (16, 32, 64, 128 or 256); a head_dim that is not a multiple of 8
+takes the kernel's instance that stages its tiles with plain loads
+instead of TMA.
 
 A wrapper launches its kernel only for CUDA tensors and raises on what the
 kernel does not take; a group of G = H // Hkv query heads too large for
@@ -26,6 +36,7 @@ the plain path.  Each kernel launch adds one to :data:`launches`.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -41,6 +52,15 @@ MAX_HEAD_DIM = 256               # widest head the kernels 6-7 take
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 NEG_BIG = -1.0e30                # the TPU kernels' finite mask
 MIN_DENOM = 1e-30                # their clamp of the softmax divisor
+# constants of csrc/decode_attention.cu
+TILE = 64                        # kTile: positions per K/V tile
+STAGES = 2                       # kStages: K/V tiles in flight
+MAX_SPLITS = 32                  # kMaxSplits: splits of S at most
+# the split chooser: a split holds at least MIN_SPLIT positions and grows
+# (doubling from TILE) until B * Hkv * splits, every row taken as full,
+# is at most SPLIT_BLOCKS_PER_SM blocks for each SM
+MIN_SPLIT = 128
+SPLIT_BLOCKS_PER_SM = 20
 
 
 def reset_launches() -> None:
@@ -80,6 +100,62 @@ def _check_common(q, k, v, head_dim: int) -> None:
             raise ValueError(f"{name} must be 16-byte aligned")
 
 
+def split_size(s: int, rows: int, sms: int) -> int:
+    """Positions per split of kernel 6 for a cache of ``s`` positions,
+    ``rows`` = B * Hkv (row, kv head) pairs and ``sms`` SMs: a power-of-two
+    multiple of :data:`TILE`, at least :data:`MIN_SPLIT` and ``s /
+    MAX_SPLITS``, doubled while ``rows`` full rows would make more than
+    ``SPLIT_BLOCKS_PER_SM * sms`` blocks, and never past the first that
+    covers ``s``."""
+    split = TILE
+    while split < s and (split < MIN_SPLIT or split * MAX_SPLITS < s
+                         or rows * -(-s // split)
+                         > SPLIT_BLOCKS_PER_SM * sms):
+        split *= 2
+    return split
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+_ticket_buffers: dict[int, torch.Tensor] = {}
+
+
+def _tickets(device, n: int) -> torch.Tensor:
+    """At least ``n`` int32 zeros on ``device``, one per (row, kv head),
+    kept across calls: each launch leaves them at zero."""
+    buf = _ticket_buffers.get(device.index)
+    if buf is None or buf.numel() < n:
+        size = max(n, 2 * buf.numel()) if buf is not None else n
+        buf = torch.zeros(size, dtype=torch.int32, device=device)
+        _ticket_buffers[device.index] = buf
+    return buf
+
+
+def decode_attention_args(q, k, v, length, out, split: int | None = None):
+    """The C entry point's arguments for one launch of kernel 6 on checked
+    CUDA tensors, and the scratch they point into (keep it alive until the
+    launch has run).  ``split`` defaults to :func:`split_size`'s."""
+    b, h, d = q.shape
+    s, hkv = k.shape[1], k.shape[2]
+    if split is None:
+        split = split_size(s, b * hkv, _sm_count(q.device.index))
+    n_split = -(-s // split)
+    partial = ticket = None
+    if n_split > 1:
+        partial = torch.empty(b * h * n_split * (d + 2), dtype=torch.float32,
+                              device=q.device)
+        ticket = _tickets(q.device, b * hkv)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    args = (_ptr(q), _ptr(k), _ptr(v), _ptr(length), _ptr(out),
+            _ptr(partial), _ptr(ticket), b, h, hkv, s, d, split,
+            DTYPE_CODE[q.dtype],
+            ctypes.c_void_p(stream))
+    return args, (partial, ticket)
+
+
 def decode_attention_cuda(q, k, v, length) -> torch.Tensor:
     """Kernel 6 on the card: (B, H, D) attention output of one query token
     per row against the first ``length[b]`` cached keys and values."""
@@ -102,11 +178,10 @@ def decode_attention_cuda(q, k, v, length) -> torch.Tensor:
     out = torch.empty_like(q)
     if b == 0 or h == 0:
         return out
-    lib = _build.library("attention")
-    stream = torch.cuda.current_stream(device).cuda_stream
-    status = lib.decode_attention(
-        _ptr(q), _ptr(k), _ptr(v), _ptr(length), _ptr(out), b, h, hkv, s, d,
-        DTYPE_CODE[q.dtype], ctypes.c_void_p(stream))
+    if s == 0:
+        return out.zero_()
+    args, _scratch = decode_attention_args(q, k, v, length, out)
+    status = _build.library("decode_attention").decode_attention(*args)
     _raise_on(status, "decode_attention")
     launches["decode_attention"] += 1
     return out

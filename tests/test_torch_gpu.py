@@ -254,11 +254,17 @@ def _normal(card, shape, seed, dtype):
                                          (2, 4, 4, 16, 130),
                                          (2, 8, 2, 8, 65),
                                          (2, 8, 2, 112, 300),
-                                         (2, 8, 4, 32, 200)])
+                                         (2, 8, 4, 32, 200),
+                                         (16, 20, 20, 128, 4096),
+                                         (2, 8, 2, 100, 300),
+                                         (3, 6, 2, 37, 500),
+                                         (2, 48, 1, 128, 300)])
 def test_decode_attention_kernel_matches_twin(card, b, h, hkv, d, s, dtype):
     """Kernel 6 vs its twin and the ``-inf``-masked oracle, ragged lengths
     1..S and one above S (clamped); values past a row's length change
-    nothing."""
+    nothing.  (16, 20, 20, 128, 4096) is the serving shape; D = 100 and 37
+    take the instance that stages without TMA; G = 48 (granite-34b's
+    heads) keeps its (row, part) states in shared memory."""
     from repro_torch.kernels import decode_attention as A
     from repro_torch.kernels import ref as R
     q = _normal(card, (b, h, d), s + 1, dtype)
@@ -285,6 +291,49 @@ def test_decode_attention_kernel_matches_twin(card, b, h, hkv, d, s, dtype):
     c = A.decode_attention_cuda(q, poisoned_k, poisoned_v, short)
     torch.cuda.synchronize()
     assert torch.equal(a, c)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_kernel_on_split_borders(card, dtype):
+    """Kernel 6 with lengths on the wrapper's split borders (one split,
+    two, one past each, one short of three), G = 7 and G = 1."""
+    from repro_torch.kernels import decode_attention as A
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    for b, h, hkv, d, s in ((7, 56, 8, 128, 2000), (7, 4, 4, 64, 1000)):
+        split = A.split_size(s, b * hkv, sms)
+        assert -(-s // split) > 2
+        lens = np.asarray([split, split + 1, 2 * split, 2 * split + 1,
+                           3 * split - 1, split - 1, 1], np.int32)
+        q = _normal(card, (b, h, d), s + 7, dtype)
+        k = _normal(card, (b, s, hkv, d), s + 8, dtype)
+        v = _normal(card, (b, s, hkv, d), s + 9, dtype)
+        length = torch.as_tensor(lens, device=card)
+        got = A.decode_attention_cuda(q, k, v, length)
+        want = A.decode_attention_twin(q, k, v, length)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(),
+                                   **_ATTN_TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_kernel_is_deterministic(card, dtype):
+    """Two calls on the same inputs give the same bits (the splits are
+    combined in split order, no float atomics), also when other calls of
+    another shape run in between."""
+    from repro_torch.kernels import decode_attention as A
+    b, h, hkv, d, s = 16, 20, 20, 128, 4096
+    q = _normal(card, (b, h, d), 1, dtype)
+    k = _normal(card, (b, s, hkv, d), 2, dtype)
+    v = _normal(card, (b, s, hkv, d), 3, dtype)
+    lens = np.random.default_rng(4).integers(1, s + 1, b).astype(np.int32)
+    length = torch.as_tensor(lens, device=card)
+    first = A.decode_attention_cuda(q, k, v, length)
+    A.decode_attention_cuda(q[:2, :8].contiguous(), k[:2, :, :8].contiguous(),
+                            v[:2, :, :8].contiguous(), length[:2])
+    for _ in range(3):
+        assert torch.equal(A.decode_attention_cuda(q, k, v, length), first)
 
 
 @pytest.mark.gpu
