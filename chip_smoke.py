@@ -14,14 +14,20 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      build report (registers, shared memory, spills);
   2. dense kernels vs twins on the card — kernel 1 (dissatisfaction from
      the aggregate) bitwise against its twin, kernel 2 (cost matrix)
-     within a stated tolerance; full N, a ragged N and a row block;
+     within a stated tolerance; full N, a ragged N and a row block; kernel
+     1 also at every K it has an instance for (2, 4, ..., 128, and 3, 17,
+     100 on the runtime-K one) with rows on and off the 16-byte grid, and
+     at the sparse refine's (N, K) = (10^6, 8);
   3. the dense main path — problem from seeds, Appendix-A initial
      partition, incremental ``refine`` (kernel 1) to a checked
      equilibrium, then the recompute path (kernel 2) for a bounded number
      of turns from the same start, with each kernel's launch count;
   4. dense times — CUDA events per kernel at the main path's shapes,
      beside its twin, the least time the card could take (bound), and a
-     library call;
+     library call; kernel 1 three ways (events over wrapper calls, events
+     over C entry-point calls, the profiler's device time), each loop
+     cycling through operand copies four times the L2, also at (10^6, 8)
+     beside its bound;
   5. where a dense turn's time goes (torch.profiler);
   6. sparse set-up — the reference's million-node instance
      (``benchmarks/sparse_bench.py``: ``random_degree_graph_edges(10^6,
@@ -43,8 +49,8 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      ``benchmarks/batch_study.py``'s per-element draws, stacked on the
      card; kernel 3 (dissatisfaction over a (B, rows, K) stack) bitwise
      against its twin and against kernel 1 on every element, at the fleet
-     shape, a ragged (3, 1003, 8) and (2, 300, 128), both frameworks, θ
-     absent and 0.5; its times;
+     shape, a ragged (3, 1003, 8), (2, 300, 128) and (2, 129, 17), both
+     frameworks, θ absent and 0.5; its times, three ways as kernel 1's;
  11. the dense fleet — ``run_sweep(mode="refine", use_kernel=True)``
      (one batched loop, kernel 3 per turn) to 32 checked equilibria;
      elements 0, 13 and 31 run alone through ``refine`` equal the fleet
@@ -125,6 +131,7 @@ name and power limit; the last line is ``{"ok": true, "device": ...}``.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -152,6 +159,10 @@ SWEEP_CAP = 24            # sweeps allowed to reach the ε-equilibrium
 DEGENERATE_SWEEPS = 256   # run (b): kernel 5 against kernel 4
 SPARSE_TURNS = 2048       # run (c): sparse refine, kernel 1 per turn
 SPARSE_VERIFY = 512
+# bytes of operand copies a timing loop of kernels 1 and 3 cycles
+# through: four times the H100's 50 MB L2, so no call finds its inputs
+# left in L2 by the call before
+COLD_BYTES = 200_000_000
 
 # the fleets: benchmarks/batch_study.py's per-element draws at the repo's
 # dense width
@@ -321,6 +332,46 @@ def check_kernel2(D, adj, r_cols, r_rows, b, loads, speeds, mu, total_b,
     return err
 
 
+def _random_rows(rng, n, k, offset=0, device="cuda"):
+    """Kernel 1's operands from ``rng``: a random (n, K) aggregate whose
+    data starts ``offset`` floats into its buffer (an offset that is not a
+    multiple of 4 puts every row off the 16-byte grid), the loads of a
+    random assignment, random speeds, mu and theta = 0.5."""
+    from repro_torch.core.problem import machine_loads
+    flat = torch.as_tensor(rng.uniform(0, 50, n * k + offset)
+                           .astype(np.float32), device=device)
+    agg = flat[offset:].view(n, k)
+    r = torch.as_tensor(rng.integers(0, k, n).astype(np.int32),
+                        device=device)
+    b = torch.as_tensor(rng.uniform(0.1, 10, n).astype(np.float32),
+                        device=device)
+    sp = rng.uniform(0.5, 2.0, k)
+    speeds = torch.as_tensor((sp / sp.sum()).astype(np.float32),
+                             device=device)
+    mu = torch.tensor(MU, dtype=torch.float32, device=device)
+    theta = torch.full((n,), 0.5, device=device)
+    return (agg, r, b, machine_loads(b, r, k), speeds, mu, torch.sum(b),
+            theta)
+
+
+def dissat_entry(D, agg, r, b, loads, speeds, mu, total_b):
+    """A launch of kernel 1 (2-D ``agg``) or kernel 3 (3-D) through its C
+    entry point alone, framework c, no theta: returns (call, outputs); the
+    call skips the wrapper and adds nothing to the launch counts."""
+    batched = agg.ndim == 3
+    out = (torch.empty_like(b), torch.empty_like(r))
+    args = ([t.data_ptr() for t in (agg, r, b)] + [None]
+            + [t.data_ptr() for t in (loads, speeds, mu, total_b, *out)]
+            + [*agg.shape, 0, torch.cuda.current_stream().cuda_stream])
+    fn = D._entry_point("dissat_from_aggregate_batched" if batched
+                        else "dissat_from_aggregate")
+
+    def call():
+        if fn(*args) != 0:
+            fail("a launch-only call of kernel 1 or 3 was refused")
+    return call, out
+
+
 def phase_kernels(D, ops, problem, rng):
     dev = problem.device
     r = torch.as_tensor(rng.integers(0, K, N).astype(np.int32), device=dev)
@@ -349,6 +400,19 @@ def phase_kernels(D, ops, problem, rng):
     err1 = max(err1, check_kernel1(
         D, agg2, r2, b2, loads2, problem.speeds, problem.mu, torch.sum(b2),
         torch.full((n2,), 0.5, device=dev), "ragged N=1003"))
+
+    # every instance: the specialised K and the runtime-K one, rows on and
+    # off the 16-byte grid
+    for k in sorted(set(D.SPECIALISED_K) | {3, 17, 100}):
+        for offset in (0, 1):
+            *ops_k, th_k = _random_rows(rng, n2, k, offset)
+            err1 = max(err1, check_kernel1(D, *ops_k, th_k,
+                                           f"N={n2} K={k} offset {offset}"))
+    # the sparse refine's shape (phase 8c)
+    *ops_s, th_s = _random_rows(rng, SPARSE_N, SPARSE_K)
+    err1 = max(err1, check_kernel1(D, *ops_s, th_s,
+                                   f"(N, K)=({SPARSE_N}, {SPARSE_K})"))
+    del ops_s, th_s
 
     err2 = check_kernel2(D, problem.adjacency, r, r, b, loads,
                          problem.speeds, problem.mu, total_b, "full (N, N)")
@@ -500,15 +564,20 @@ def phase_main(D, ops, problem):
 # phase 4: times
 # ---------------------------------------------------------------------------
 
-def kernel_device_us(calls: dict, attempts: int = 3) -> dict:
+def kernel_device_us(calls: dict, attempts: int = 3,
+                     keys: dict | None = None) -> dict:
     """Mean device time (us) of each kernel, by the profiler: ``calls``
-    maps a kernel name to (function launching it, repetitions).  A window
-    in which the profiler recorded none of the kernel's launches is taken
-    again, up to ``attempts`` windows; after that the time is None and the
-    device keys of the last window are logged."""
+    maps a kernel name to (function launching it, repetitions), and the
+    profiler's record is the one whose key holds ``keys[name]`` (default
+    ``<name>_kernel``).  A window in which the profiler recorded none of
+    the kernel's launches is taken again, up to ``attempts`` windows;
+    after that the time is None and the device keys of the last window are
+    logged."""
     from torch.profiler import ProfilerActivity, profile
+    keys = keys or {}
     out = {}
     for name, (fn, reps) in calls.items():
+        key = keys.get(name, f"{name}_kernel")
         fn()
         torch.cuda.synchronize()
         out[name] = None
@@ -518,8 +587,7 @@ def kernel_device_us(calls: dict, attempts: int = 3) -> dict:
                 for _ in range(reps):
                     fn()
                 torch.cuda.synchronize()
-            hits = [e for e in prof.key_averages()
-                    if f"{name}_kernel" in e.key]
+            hits = [e for e in prof.key_averages() if key in e.key]
             count = sum(e.count for e in hits)
             if count:
                 out[name] = sum(e.self_device_time_total
@@ -528,12 +596,80 @@ def kernel_device_us(calls: dict, attempts: int = 3) -> dict:
         else:
             seen = [(e.key[:60], e.count) for e in prof.key_averages()
                     if e.self_device_time_total > 0]
-            log(f"  the profiler saw no {name}_kernel in {attempts} "
+            log(f"  the profiler saw no {key} in {attempts} "
                 f"window(s); device keys of the last: {seen}")
     return out
 
 
-def phase_times(D, problem, r):
+def _rows_bytes(bsz, n, k) -> int:
+    """Kernels 1 and 3: A, r, b, loads, speeds, mu and B read once, dissat
+    and best written once (B = 1 for kernel 1)."""
+    f4, i4 = 4, 4
+    return f4 * bsz * n * k + i4 * bsz * n + f4 * bsz * n \
+        + 2 * f4 * bsz * k + 2 * f4 * bsz + f4 * bsz * n + i4 * bsz * n
+
+
+def _bound_ms(byt, flops):
+    t_bytes = 1e3 * byt / PEAK_BYTES_S
+    t_ops = 1e3 * flops / PEAK_F32_FLOPS
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def cold_sets(args, nbytes):
+    """``args`` and copies of it, enough that a loop cycling through them
+    moves COLD_BYTES: each call then reads its inputs from device memory."""
+    copies = max(1, math.ceil(COLD_BYTES / nbytes))
+    return [args] + [tuple(t.clone() for t in args)
+                     for _ in range(copies - 1)]
+
+
+def time_dissat_three_ways(D, name, wrapper, arg_sets, iters, label, card):
+    """Kernel 1 or 3 timed three ways in turns: CUDA events over wrapper
+    calls, CUDA events over C entry-point calls (no wrapper), and the
+    kernel's own device time by the profiler.  Each loop cycles through
+    ``arg_sets`` (operand tuples as :func:`dissat_entry` takes them), one
+    set a call, so the inputs are cold in L2.  Each set's entry-point call
+    must launch and equal its wrapper's output bitwise first.  Returns the
+    three (ms, ms, us or None)."""
+    entries, wrapped = [], []
+    for args in arg_sets:
+        entry, out = dissat_entry(D, *args)
+        entry()
+        got = wrapper(*args[:6], "c", total_weight=args[6])
+        torch.cuda.synchronize()
+        if not (torch.equal(out[0], got[0]) and torch.equal(out[1], got[1])):
+            fail(f"{name}: a launch-only call differs from its wrapper's "
+                 f"({label})")
+        entries.append(entry)
+        wrapped.append(lambda a=args: wrapper(*a[:6], "c",
+                                              total_weight=a[6]))
+    nxt = {"wrapper": 0, "entry": 0}
+
+    def cycling(part, fns):
+        def call():
+            nxt[part] = (nxt[part] + 1) % len(fns)
+            fns[nxt[part]]()
+        return call
+    calls = {"wrapper": cycling("wrapper", wrapped),
+             "entry": cycling("entry", entries)}
+    t = {"wrapper": [], "entry": []}
+    for order in (("wrapper", "entry"), ("entry", "wrapper"),
+                  ("wrapper", "entry")):
+        for part in order:
+            t[part].append(cuda_ms(calls[part], iters))
+    prof = kernel_device_us({name: (calls["entry"], 50)},
+                            keys={name: "dissat_from_aggregate_kernel"})[name]
+    ms_w, ms_e = float(np.mean(t["wrapper"])), float(np.mean(t["entry"]))
+    log(f"  {name} at {label}, {len(arg_sets)} operand set(s) cycled (cold "
+        f"L2): {ms_w:.5f} ms per wrapper call "
+        f"({' '.join(f'{x:.5f}' for x in t['wrapper'])}), {ms_e:.5f} ms per "
+        f"C entry-point call ({' '.join(f'{x:.5f}' for x in t['entry'])}), "
+        f"{'no profiler record' if prof is None else f'{prof:.2f} us'} on "
+        f"the device by the profiler [{card}]")
+    return ms_w, ms_e, prof
+
+
+def phase_times(D, problem, r, card):
     from repro_torch.core.problem import machine_loads
     dev = problem.device
     b = problem.node_weights
@@ -571,44 +707,56 @@ def phase_times(D, problem, r):
             iters = 200 if name in ("k1", "p1") else 20
             t[name].append(cuda_ms(fn, iters))
     ms = {name: float(np.mean(v)) for name, v in t.items()}
-    # the events above time back-to-back wrapper calls, so a launch-bound
-    # kernel reads at the host's enqueue rate; the profiler gives the
-    # kernels' own device time
-    device_us = kernel_device_us({"dissat_from_aggregate": (k1, 50),
-                                  "cost_matrix": (k2, 10)})
+    # kernel 1 three ways: the events above time back-to-back wrapper
+    # calls, which a launch-bound kernel runs at the host's rate
+    three = time_dissat_three_ways(
+        D, "dissat_from_aggregate", D.dissatisfaction_from_aggregate_cuda,
+        cold_sets((agg, r, b, loads, speeds, D._scalar(mu, dev), total_b),
+                  _rows_bytes(1, N, K)), 400, f"(N, K)=({N}, {K})", card)
+    device_us = {"dissat_from_aggregate": three[2],
+                 **kernel_device_us({"cost_matrix": (k2, 10)})}
 
-    f4, i4 = 4, 4
+    # kernel 1 at the sparse refine's (N, K) = (10^6, 8) (phase 8c's shape)
+    big = _random_rows(np.random.default_rng(SEED + 3), SPARSE_N, SPARSE_K)
+    big_sets = cold_sets(big[:7], _rows_bytes(1, SPARSE_N, SPARSE_K))
+    w_big, e_big, prof_big = time_dissat_three_ways(
+        D, "dissat_from_aggregate", D.dissatisfaction_from_aggregate_cuda,
+        big_sets, 50, f"(N, K)=({SPARSE_N}, {SPARSE_K})", card)
+    bound_big, by_big = _bound_ms(_rows_bytes(1, SPARSE_N, SPARSE_K),
+                                  SPARSE_N * SPARSE_K * 12)
+    dev_big = e_big if prof_big is None else 1e-3 * prof_big
+    log(f"  dissat_from_aggregate at (N, K)=({SPARSE_N}, {SPARSE_K}): bound "
+        f"{bound_big:.5f} ms ({by_big}, "
+        f"{_rows_bytes(1, SPARSE_N, SPARSE_K) / 1e6:.2f} MB); device time "
+        f"/ bound {dev_big / bound_big:.3f}, per C entry-point call / bound "
+        f"{e_big / bound_big:.3f}, per wrapper call / bound "
+        f"{w_big / bound_big:.3f} [{card}]")
+    del big, big_sets
+
     nnz = int(torch.count_nonzero(adj))
-    # kernel 1: reads A, r, b, loads, speeds, mu, B once; writes dissat, best
-    bytes1 = f4 * N * K + i4 * N + f4 * N + 2 * f4 * K + 2 * f4 \
-        + f4 * N + i4 * N
-    ops1 = N * K * 12            # degree add, others, cut, load term, min
+    f4, i4 = 4, 4
     # kernel 2: reads C, r, b, loads, speeds, mu, B once; writes the costs
     bytes2 = f4 * N * N + i4 * N + f4 * N + 2 * f4 * K + 2 * f4 \
         + f4 * N * K
     ops2 = nnz + N * K * 12      # one add per nonzero, then the assembly
     out = []
     for name, byt, flops, kern, plain, lib, line in (
-            ("dissat_from_aggregate", bytes1, ops1, ms["k1"], ms["p1"], None,
-             313),
+            ("dissat_from_aggregate", _rows_bytes(1, N, K), N * K * 12,
+             ms["k1"], ms["p1"], None, 313),
             ("cost_matrix", bytes2, ops2, ms["k2"], ms["p2"], ms["lib2"],
              115)):
-        t_bytes = 1e3 * byt / PEAK_BYTES_S
-        t_ops = 1e3 * flops / PEAK_F32_FLOPS
+        bound, by = _bound_ms(byt, flops)
         out.append({"name": name, "route": "cuda",
                     "source": "src/repro_torch/kernels/csrc/dissatisfaction.cu",
                     "replaces": f"src/repro/kernels/dissatisfaction.py:{line}",
                     "ms": kern, "plain_ms": plain,
-                    "bound_ms": max(t_bytes, t_ops),
-                    "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                    "bound_ms": bound, "bound_by": by,
                     "library_ms": lib})
         dev_us = device_us[name]
         log(f"  {name}: kernel {kern:.5f} ms per call ("
             f"{'not measured' if dev_us is None else f'{dev_us:.2f} us'} "
             f"on the device), twin "
-            f"{plain:.5f} ms, bound "
-            f"{max(t_bytes, t_ops):.5f} ms "
-            f"({'bytes' if t_bytes >= t_ops else 'operations'}), library "
+            f"{plain:.5f} ms, bound {bound:.5f} ms ({by}), library "
             f"{'null' if lib is None else f'{lib:.5f} ms'}")
     return out
 
@@ -1039,7 +1187,7 @@ def phase_fleet_kernels(D, problems, r0, card):
     args = _fleet_operands(problems, r0)
     err = check_kernel3(D, *args, "fleet shape")
     rng = np.random.default_rng(SEED + 10)
-    for bsz, rows, k in ((3, 1003, 8), (2, 300, 128)):
+    for bsz, rows, k in ((3, 1003, 8), (2, 300, 128), (2, 129, 17)):
         err = max(err, check_kernel3(D, *_random_stack(rng, bsz, rows, k),
                                      "ragged"))
     agg, r, b, loads, speeds, mu, total_b = args
@@ -1059,22 +1207,17 @@ def phase_fleet_kernels(D, problems, r0, card):
             t[name].append(cuda_ms({"k3": k3, "p3": p3}[name],
                                    200 if name == "k3" else 20))
     ms = {name: float(np.mean(v)) for name, v in t.items()}
-    dev_us = kernel_device_us(
-        {"dissat_from_aggregate_batched": (k3, 50)})[
-            "dissat_from_aggregate_batched"]
-    f4, i4 = 4, 4
-    # reads A, r, b, loads, speeds, mu, B once; writes dissat, best
-    byt = f4 * bsz * n * k + i4 * bsz * n + f4 * bsz * n \
-        + 2 * f4 * bsz * k + 2 * f4 * bsz + f4 * bsz * n + i4 * bsz * n
-    flops = bsz * n * k * 12
-    t_bytes = 1e3 * byt / PEAK_BYTES_S
-    t_ops = 1e3 * flops / PEAK_F32_FLOPS
+    byt = _rows_bytes(bsz, n, k)
+    _, _, dev_us = time_dissat_three_ways(
+        D, "dissat_from_aggregate_batched",
+        D.dissatisfaction_from_aggregate_batched_cuda, cold_sets(args, byt),
+        400, f"(B, N, K)=({bsz}, {n}, {k})", card)
+    bound, by = _bound_ms(byt, bsz * n * k * 12)
     rec = {"name": "dissat_from_aggregate_batched", "route": "cuda",
            "source": "src/repro_torch/kernels/csrc/dissatisfaction.cu",
            "replaces": "src/repro/kernels/dissatisfaction.py:417",
            "ms": ms["k3"], "plain_ms": ms["p3"],
-           "bound_ms": max(t_bytes, t_ops),
-           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "bound_ms": bound, "bound_by": by,
            "library_ms": None, "max_abs_err": err}
     log(f"  dissat_from_aggregate_batched at (B, N, K)=({bsz}, {n}, {k}): "
         f"kernel {ms['k3']:.5f} ms per call "
@@ -2057,7 +2200,7 @@ def main() -> int:
     main_run = phase_main(D, ops, problem)
 
     log("== phase 4: times (CUDA events, main-path shapes)")
-    kernels = phase_times(D, problem, main_run["r"])
+    kernels = phase_times(D, problem, main_run["r"], card)
     log("== phase 5: where a turn's time goes (torch.profiler)")
     phase_profile(problem, main_run["r0"])
     for rec, err in zip(kernels, (err1, err2)):

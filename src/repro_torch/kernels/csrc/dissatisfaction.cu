@@ -12,6 +12,8 @@
 // launch.  The cost assembly and the per-row reduction that kernels 1
 // and 3 end in live in reduce_dissat.cuh, shared with edge_block.cu.
 
+#include <stdint.h>
+
 #include "reduce_dissat.cuh"
 
 namespace {
@@ -20,84 +22,141 @@ using repro::assemble_cost;
 using repro::kMaxK;
 
 // ---------------------------------------------------------------------------
-// Kernel 1: (dissat, best) straight from the carried (rows, K) aggregate.
+// Kernels 1 and 3: (dissat, best) straight from the carried aggregate, one
+// kernel body for both.
 //
-// Replaces the TPU kernel dissatisfaction_from_aggregate_pallas
-// (repro/kernels/dissatisfaction.py).  Bound on an H100: bytes, and below
-// that launch latency -- at N=16384, K=16 it reads 1.05 MB of aggregate
-// plus O(N) vectors and writes 128 KB, about 0.4 us at 3.35 TB/s, far
-// under the few microseconds a launch costs.  Design: one thread per row;
-// the row's degree is one pass over its K entries, the costs a second
-// pass (the row is in L1 by then) that keeps the running minimum, the
-// lowest index reaching it, and the cost on the row's own machine, so no
-// (rows, K) cost block and no per-K register array exists.  Machines
-// k >= K are never visited, which is what the reference's finite _BIG
-// mask achieves.  A NaN cost makes the minimum NaN and the index K, as
-// the reference's min and iota-min do.
+// Kernel 1 (dissat_from_aggregate) replaces the TPU kernel
+// dissatisfaction_from_aggregate_pallas, kernel 3
+// (dissat_from_aggregate_batched) replaces
+// dissatisfaction_from_aggregate_batched_pallas (both
+// repro/kernels/dissatisfaction.py).  Kernel 1 is kernel 3 at B = 1: the
+// grid is (row blocks, B), block (x, e) reads element e's rows, loads,
+// speeds, mu and B, so every element of kernel 3 is kernel 1 on that
+// element by construction.
+//
+// What bounds them on an H100: bytes, and below a few MB the launch.  At
+// N=16384, K=16 kernel 1 reads 1.05 MB of aggregate plus O(N) vectors and
+// writes 128 KB, about 0.4 us at 3.35 TB/s, under the launch floor; at the
+// sparse refine's N=10^6, K=8 it moves 48 MB, about 14 us; kernel 3 at
+// B=32, N=4096, K=16 moves 10.5 MB, about 3.1 us.  The arithmetic (~12
+// flops per (row, machine)) is far below the f32 rate.
+//
+// Design.  Each thread owns one row, a block kRows consecutive rows (128
+// blocks at N=16384 on 132 SMs); the row's b, r and theta are read before
+// anything else, so their latency hides under the row's.  K is a template
+// constant for the K the repo runs (the cases of launch_dissat), so both
+// passes of reduce_dissat_row unroll; every other K up to kMaxK takes the
+// runtime-K instance.  Up to kRegK machines the row lives in registers:
+// each thread loads it with 16-byte loads where it is 16-byte aligned (K
+// a multiple of 4), else float by float.  Wider K, and the runtime-K
+// instance, read the row from device memory in both passes (no path runs
+// them; tools/dissat_ablation.py's "direct" variant is that pattern at
+// every K).  No shared memory beyond the machine table.  The order of
+// every add and multiply is reduce_dissat_row's, unchanged: the degree k
+// ascending, lowest-index ties, NaN -> index K, theta subtracted once.
+// (tools/dissat_ablation.py times the alternatives.)
 // ---------------------------------------------------------------------------
 
-__global__ void dissat_from_aggregate_kernel(
-    const float* __restrict__ agg, const int* __restrict__ r_rows,
-    const float* __restrict__ b_rows, const float* __restrict__ theta,
-    const float* __restrict__ loads, const float* __restrict__ speeds,
-    const float* __restrict__ mu_p, const float* __restrict__ total_b_p,
-    float* __restrict__ dissat, int* __restrict__ best, int rows, int k,
-    int framework) {
-  __shared__ float s_loads[kMaxK];
-  __shared__ float s_inv_w[kMaxK];
-  repro::load_machine_table(loads, speeds, k, s_loads, s_inv_w);
-  __syncthreads();
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= rows) return;
-  const repro::RowDissat row = repro::reduce_dissat_row(
-      agg + static_cast<size_t>(i) * k, 1, k, b_rows[i], r_rows[i], s_loads,
-      s_inv_w, 0.5f * mu_p[0], total_b_p[0], framework);
-  float d = row.dissat;
-  if (theta != nullptr) d = d - theta[i];
-  dissat[i] = d;
-  best[i] = row.best;
+constexpr int kRows = 128;  // rows (threads) a block
+constexpr int kRegK = 32;   // K up to which a row lives in registers
+
+// Whether the instance for K = KT (0: runtime K) keeps a row in registers.
+template <int KT>
+constexpr bool kInRegisters = KT > 0 && KT <= kRegK;
+
+struct RowsArgs {
+  const float* agg;      // (B, rows, K)
+  const int* r_rows;     // (B, rows)
+  const float* b_rows;   // (B, rows)
+  const float* theta;    // (B, rows) or null
+  const float* loads;    // (B, K)
+  const float* speeds;   // (B, K)
+  const float* mu;       // (B,)
+  const float* total_b;  // (B,)
+  float* dissat;         // (B, rows)
+  int* best;             // (B, rows)
+  int rows;
+  int k;
+  int framework;
+};
+
+// Loads the KT floats of one row into registers.
+template <int KT>
+__device__ __forceinline__ void load_row(const float* __restrict__ src,
+                                         float (&row)[KT]) {
+  if (KT % 4 == 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+#pragma unroll
+    for (int c = 0; c < KT; c += 4) {
+      const float4 v = __ldg(reinterpret_cast<const float4*>(src + c));
+      row[c] = v.x;
+      row[c + 1] = v.y;
+      row[c + 2] = v.z;
+      row[c + 3] = v.w;
+    }
+  } else {
+#pragma unroll
+    for (int c = 0; c < KT; ++c) row[c] = __ldg(src + c);
+  }
 }
 
-// ---------------------------------------------------------------------------
-// Kernel 3: kernel 1 over a fleet, a (B, rows, K) aggregate stack.
-//
-// Replaces the TPU kernel dissatisfaction_from_aggregate_batched_pallas
-// (repro/kernels/dissatisfaction.py, body _dissat_kernel_batched), which
-// the batched refinement reaches on every turn.  Bound on an H100: bytes,
-// and below that launch latency -- at B=32, N=4096, K=16 it reads 8.39 MB
-// of aggregate plus 1.05 MB of (r, b) and writes 1.05 MB, about 3.1 us at
-// 3.35 TB/s.  Design: the grid is (ceil(rows/128), B), one thread per row;
-// block (x, e) reads element e's slab at agg + (e*rows + i)*K and element
-// e's own loads, speeds, mu and B, and ends in kernel 1's epilogue
-// (reduce_dissat.cuh), so every element is bitwise kernel 1 on that
-// element by construction.  No row of one element is ever read by a block
-// of another.
-// ---------------------------------------------------------------------------
-
-__global__ void dissat_from_aggregate_batched_kernel(
-    const float* __restrict__ agg, const int* __restrict__ r_rows,
-    const float* __restrict__ b_rows, const float* __restrict__ theta,
-    const float* __restrict__ loads, const float* __restrict__ speeds,
-    const float* __restrict__ mu_p, const float* __restrict__ total_b_p,
-    float* __restrict__ dissat, int* __restrict__ best, int rows, int k,
-    int framework) {
+// KT > 0: K is the constant KT; KT == 0: K is a.k.
+template <int KT>
+__global__ void __launch_bounds__(kRows)
+    dissat_from_aggregate_kernel(const RowsArgs a) {
   __shared__ float s_loads[kMaxK];
   __shared__ float s_inv_w[kMaxK];
+  const int k = KT > 0 ? KT : a.k;
   const int e = blockIdx.y;
-  repro::load_machine_table(loads + static_cast<size_t>(e) * k,
-                            speeds + static_cast<size_t>(e) * k, k, s_loads,
+  const int row = blockIdx.x * kRows + threadIdx.x;
+  const size_t i = static_cast<size_t>(e) * a.rows + row;
+  const bool live = row < a.rows;
+  const float b = live ? __ldg(a.b_rows + i) : 0.0f;
+  const int r = live ? __ldg(a.r_rows + i) : 0;
+  const float th = live && a.theta != nullptr ? __ldg(a.theta + i) : 0.0f;
+  const float half_mu = 0.5f * __ldg(a.mu + e);
+  const float total_b = __ldg(a.total_b + e);
+  repro::load_machine_table(a.loads + static_cast<size_t>(e) * k,
+                            a.speeds + static_cast<size_t>(e) * k, k, s_loads,
                             s_inv_w);
+  float regs[kInRegisters<KT> ? KT : 1];
+  const float* a_row = a.agg + i * k;
+  if constexpr (kInRegisters<KT>) {
+    if (live) load_row<KT>(a_row, regs);
+    a_row = regs;
+  }
   __syncthreads();
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= rows) return;
-  const size_t row = static_cast<size_t>(e) * rows + i;
+  if (!live) return;
   const repro::RowDissat out = repro::reduce_dissat_row(
-      agg + row * k, 1, k, b_rows[row], r_rows[row], s_loads, s_inv_w,
-      0.5f * mu_p[e], total_b_p[e], framework);
+      a_row, 1, k, b, r, s_loads, s_inv_w, half_mu, total_b, a.framework);
   float d = out.dissat;
-  if (theta != nullptr) d = d - theta[row];
-  dissat[row] = d;
-  best[row] = out.best;
+  if (a.theta != nullptr) d = d - th;
+  a.dissat[i] = d;
+  a.best[i] = out.best;
+}
+
+template <int KT>
+int launch_rows(const RowsArgs& a, int batch, cudaStream_t stream) {
+  const dim3 grid((a.rows + kRows - 1) / kRows, batch);
+  dissat_from_aggregate_kernel<KT><<<grid, kRows, 0, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The K with a compile-time instance (SPECIALISED_K in dissatisfaction.py);
+// any other K takes the runtime-K instance.
+int launch_dissat(const RowsArgs& a, int batch, void* stream) {
+  if (a.k < 1 || a.k > kMaxK || batch < 1 || batch > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (a.k) {
+    case 2: return launch_rows<2>(a, batch, s);
+    case 4: return launch_rows<4>(a, batch, s);
+    case 8: return launch_rows<8>(a, batch, s);
+    case 16: return launch_rows<16>(a, batch, s);
+    case 32: return launch_rows<32>(a, batch, s);
+    case 64: return launch_rows<64>(a, batch, s);
+    case 128: return launch_rows<128>(a, batch, s);
+    default: return launch_rows<0>(a, batch, s);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -204,14 +263,9 @@ int dissat_from_aggregate(const float* agg, const int* r_rows,
                           const float* mu, const float* total_b,
                           float* dissat, int* best, int rows, int k,
                           int framework, void* stream) {
-  if (k < 1 || k > kMaxK) return static_cast<int>(cudaErrorInvalidValue);
-  const int threads = 128;
-  const int blocks = (rows + threads - 1) / threads;
-  dissat_from_aggregate_kernel<<<blocks, threads, 0,
-                                 static_cast<cudaStream_t>(stream)>>>(
-      agg, r_rows, b_rows, theta, loads, speeds, mu, total_b, dissat, best,
-      rows, k, framework);
-  return static_cast<int>(cudaGetLastError());
+  return launch_dissat({agg, r_rows, b_rows, theta, loads, speeds, mu,
+                        total_b, dissat, best, rows, k, framework},
+                       1, stream);
 }
 
 int dissat_from_aggregate_batched(const float* agg, const int* r_rows,
@@ -221,15 +275,9 @@ int dissat_from_aggregate_batched(const float* agg, const int* r_rows,
                                   float* dissat, int* best, int batch,
                                   int rows, int k, int framework,
                                   void* stream) {
-  if (k < 1 || k > kMaxK || batch < 1 || batch > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int threads = 128;
-  const dim3 blocks((rows + threads - 1) / threads, batch);
-  dissat_from_aggregate_batched_kernel<<<blocks, threads, 0,
-                                         static_cast<cudaStream_t>(stream)>>>(
-      agg, r_rows, b_rows, theta, loads, speeds, mu, total_b, dissat, best,
-      rows, k, framework);
-  return static_cast<int>(cudaGetLastError());
+  return launch_dissat({agg, r_rows, b_rows, theta, loads, speeds, mu,
+                        total_b, dissat, best, rows, k, framework},
+                       batch, stream);
 }
 
 int cost_matrix(const float* adj, const int* r_cols, const int* r_rows,

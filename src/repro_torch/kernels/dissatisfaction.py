@@ -7,14 +7,16 @@ Three kernels, all in ``csrc/dissatisfaction.cu`` and built by
 * ``dissat_from_aggregate`` — replaces the TPU kernel
   ``repro.kernels.dissatisfaction.dissatisfaction_from_aggregate_pallas``.
   The incremental path carries the (rows, K) aggregate; one thread per
-  row reads its A row, assembles the K costs in registers and writes only
-  ``(dissat, best)``.  The (rows, K) cost matrix never reaches device
-  memory.
+  row loads its A row (into registers with 16-byte loads up to K = 32,
+  straight from device memory beyond), assembles
+  the K costs and writes only ``(dissat, best)``.  The (rows, K) cost
+  matrix never reaches device memory.  K is a compile-time constant for
+  :data:`SPECIALISED_K`.
 * ``dissat_from_aggregate_batched`` — replaces
-  ``dissatisfaction_from_aggregate_batched_pallas``: kernel 1 over a
-  (B, rows, K) fleet stack on a (row blocks, B) grid, each element
-  reading its own machine table and scalars and ending in the same
-  epilogue, so each element is bitwise kernel 1's (DESIGN.md §12.3).
+  ``dissatisfaction_from_aggregate_batched_pallas``: the same kernel body
+  over a (B, rows, K) fleet stack on a (row blocks, B) grid, each element
+  reading its own machine table and scalars, so each element is bitwise
+  kernel 1's (DESIGN.md §12.3); kernel 1 is its B = 1 case.
 * ``cost_matrix`` — replaces ``cost_matrix_pallas``: each warp streams one
   adjacency row (rectangular row blocks allowed), accumulates
   ``acc[r_j] += c_ij`` in lane-private shared-memory slots in a fixed
@@ -30,7 +32,11 @@ them, and the card's check holds each kernel against its twin.
 
 A wrapper launches its kernel only for CUDA tensors and raises on what the
 kernel does not take; the plain twin is for tensors on the CPU.  Each
-kernel launch adds one to :data:`launches`.
+kernel launch adds one to :data:`launches`.  The launch path of kernels 1
+and 3 runs once per refinement turn, so it is kept lean: each check is
+one comparison (its message is built only when it fails), device scalars
+pass as they are, pointers go to the C entry point as plain ints, and no
+call waits on the card.
 """
 from __future__ import annotations
 
@@ -42,12 +48,17 @@ from ..core.costs import per_element, row_sum
 
 MAX_K = 128      # machines the kernels take (shared-memory slots per row)
 MAX_BATCH = 65535   # fleet elements kernel 3 takes (its grid's y extent)
+# K with a compile-time instance of kernels 1 and 3 (the cases of
+# launch_dissat in csrc/dissatisfaction.cu); every other K up to MAX_K
+# takes the runtime-K instance
+SPECIALISED_K = (2, 4, 8, 16, 32, 64, 128)
 
 # kernel name -> launches since the last reset_launches()
 launches = {"dissat_from_aggregate": 0, "cost_matrix": 0,
             "dissat_from_aggregate_batched": 0}
 
 _FRAMEWORK_CODE = {"c": 0, "ct": 1}
+_F32, _I32 = torch.float32, torch.int32
 
 
 def reset_launches() -> None:
@@ -157,7 +168,16 @@ def cost_matrix_plain(adjacency, assignment, node_weights, loads, speeds,
 # CUDA wrappers
 # ---------------------------------------------------------------------------
 
-def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
+def _check(name: str, t: torch.Tensor, dtype, shape: tuple,
+           device) -> None:
+    if not (isinstance(t, torch.Tensor) and t.device == device
+            and t.dtype is dtype and t.shape == shape
+            and t.is_contiguous()):
+        _refuse(name, t, dtype, shape, device)
+
+
+def _refuse(name: str, t, dtype, shape: tuple, device) -> None:
+    """Raise the ValueError that says why ``t`` failed :func:`_check`."""
     if not isinstance(t, torch.Tensor) or t.device != device:
         raise ValueError(f"{name} must be a tensor on {device}")
     if t.dtype != dtype:
@@ -165,14 +185,16 @@ def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} must have shape {tuple(shape)}; got "
                          f"{tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+    raise ValueError(f"{name} must be contiguous")
 
 
 def _scalar(x, device) -> torch.Tensor:
-    """A 0-d float32 device tensor; device tensors pass through, so the
-    loop never copies a host number to the card."""
+    """``x`` as a 0-d float32 tensor on ``device``: such a tensor comes
+    back as it is, another tensor is moved or cast there (a device tensor
+    never goes through the host), a Python number is put there."""
     if isinstance(x, torch.Tensor):
+        if x.dtype is _F32 and x.ndim == 0 and x.device == device:
+            return x
         return x.to(device=device, dtype=torch.float32).reshape(())
     return torch.full((), float(x), dtype=torch.float32, device=device)
 
@@ -193,43 +215,92 @@ def _raise_on(status: int, name: str) -> None:
                            f"{status}")
 
 
+def check_dissat_operands(aggregate, row_assignment, node_weights, loads,
+                          speeds, theta=None, mu=None, total_weight=None, *,
+                          device, batched: bool = False):
+    """The operand checks of kernels 1 and 3, on any device (so they run
+    on the CPU too): raises ValueError on what the kernels do not take and
+    returns ``(B, rows, K)``, B = 1 for kernel 1.  Kernel 3
+    (``batched=True``) takes a leading B axis on every operand, and its
+    ``mu`` and a given ``total_weight`` must be (B,) float32 tensors on
+    ``device``; kernel 1's scalars are converted by its wrapper instead."""
+    shape = aggregate.shape
+    if len(shape) != 2 + batched:
+        raise ValueError(f"aggregate must be ({'B, ' if batched else ''}"
+                         f"rows, K); got shape {tuple(shape)}")
+    bsz, rows, k = shape if batched else (1, *shape)
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"the kernel takes 1 <= K <= {MAX_K}; got K={k}")
+    if not 1 <= bsz <= MAX_BATCH:
+        raise ValueError(f"the kernel takes 1 <= B <= {MAX_BATCH}; got "
+                         f"B={bsz}")
+    lead = (bsz,) if batched else ()
+    per_row, per_machine = lead + (rows,), lead + (k,)
+    _check("aggregate", aggregate, _F32, shape, device)
+    _check("row_assignment", row_assignment, _I32, per_row, device)
+    _check("node_weights", node_weights, _F32, per_row, device)
+    _check("loads", loads, _F32, per_machine, device)
+    _check("speeds", speeds, _F32, per_machine, device)
+    if batched:
+        _check("mu", mu, _F32, lead, device)
+        if total_weight is not None:
+            _check("total_weight", total_weight, _F32, lead, device)
+    if theta is not None:
+        _check("theta", theta, _F32, per_row, device)
+    return bsz, rows, k
+
+
+# the C entry points of csrc/dissatisfaction.cu, bound at first use
+_entry_points: dict = {}
+
+
+def _entry_point(name: str):
+    fn = _entry_points.get(name)
+    if fn is None:
+        from . import _build
+        fn = _entry_points[name] = getattr(_build.library(), name)
+    return fn
+
+
+def _stream(device) -> int:
+    """PyTorch's current stream on ``device``, as a cudaStream_t.  This is
+    a private PyTorch call (``torch.cuda.current_stream(device).cuda_stream``
+    is the public one, ~4 us a call slower on an H100 host);
+    ``tests/test_torch_gpu.py`` fails plainly if a PyTorch release drops
+    it."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
 def dissatisfaction_from_aggregate_cuda(aggregate, row_assignment,
                                         node_weights, loads, speeds, mu,
                                         framework: str = "c", *, theta=None,
                                         total_weight=None):
     """Kernel 1 on the card: ``(dissat (rows,) f32, best (rows,) i32)``
     from a (rows, K) f32 aggregate.  ``mu`` and ``total_weight`` may be
-    device scalars (read by the kernel, no host round trip)."""
-    from . import _build
-    device = aggregate.device
-    if device.type != "cuda":
+    device scalars (read by the kernel, no host round trip); a Python
+    number, or a tensor of another dtype or device, is converted."""
+    if not aggregate.is_cuda:
         raise ValueError("dissatisfaction_from_aggregate_cuda needs CUDA "
                          "tensors")
-    rows, k = aggregate.shape
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"the kernel takes 1 <= K <= {MAX_K}; got K={k}")
-    _check("aggregate", aggregate, torch.float32, (rows, k), device)
-    _check("row_assignment", row_assignment, torch.int32, (rows,), device)
-    _check("node_weights", node_weights, torch.float32, (rows,), device)
-    _check("loads", loads, torch.float32, (k,), device)
-    _check("speeds", speeds, torch.float32, (k,), device)
-    if theta is not None:
-        _check("theta", theta, torch.float32, (rows,), device)
+    device = aggregate.device
+    _, rows, k = check_dissat_operands(aggregate, row_assignment,
+                                       node_weights, loads, speeds, theta,
+                                       device=device)
+    code = _framework_code(framework)
     if total_weight is None:
         total_weight = torch.sum(node_weights)
     mu_t = _scalar(mu, device)
     tb_t = _scalar(total_weight, device)
-    dissat = torch.empty((rows,), dtype=torch.float32, device=device)
-    best = torch.empty((rows,), dtype=torch.int32, device=device)
+    dissat = torch.empty_like(node_weights)
+    best = torch.empty_like(row_assignment)
     if rows == 0:
         return dissat, best
-    lib = _build.library()
-    stream = torch.cuda.current_stream(device).cuda_stream
-    status = lib.dissat_from_aggregate(
-        _ptr(aggregate), _ptr(row_assignment), _ptr(node_weights),
-        _ptr(theta), _ptr(loads), _ptr(speeds), _ptr(mu_t), _ptr(tb_t),
-        _ptr(dissat), _ptr(best), rows, k, _framework_code(framework),
-        ctypes.c_void_p(stream))
+    status = _entry_point("dissat_from_aggregate")(
+        aggregate.data_ptr(), row_assignment.data_ptr(),
+        node_weights.data_ptr(), None if theta is None else theta.data_ptr(),
+        loads.data_ptr(), speeds.data_ptr(), mu_t.data_ptr(),
+        tb_t.data_ptr(), dissat.data_ptr(), best.data_ptr(), rows, k, code,
+        _stream(device))
     _raise_on(status, "dissat_from_aggregate")
     launches["dissat_from_aggregate"] += 1
     return dissat, best
@@ -247,43 +318,26 @@ def dissatisfaction_from_aggregate_batched_cuda(aggregate, row_assignment,
     device tensors (``total_weight`` defaults to each element's own
     weight sum).  Returns ``(dissat (B, rows) f32, best (B, rows) i32)``,
     each element bitwise kernel 1 on that element's operands."""
-    from . import _build
-    device = aggregate.device
-    if device.type != "cuda":
+    if not aggregate.is_cuda:
         raise ValueError("dissatisfaction_from_aggregate_batched_cuda needs "
                          "CUDA tensors")
-    if aggregate.ndim != 3:
-        raise ValueError(f"aggregate must be (B, rows, K); got shape "
-                         f"{tuple(aggregate.shape)}")
-    bsz, rows, k = aggregate.shape
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"the kernel takes 1 <= K <= {MAX_K}; got K={k}")
-    if not 1 <= bsz <= MAX_BATCH:
-        raise ValueError(f"the kernel takes 1 <= B <= {MAX_BATCH}; got "
-                         f"B={bsz}")
-    _check("aggregate", aggregate, torch.float32, (bsz, rows, k), device)
-    _check("row_assignment", row_assignment, torch.int32, (bsz, rows),
-           device)
-    _check("node_weights", node_weights, torch.float32, (bsz, rows), device)
+    device = aggregate.device
+    bsz, rows, k = check_dissat_operands(
+        aggregate, row_assignment, node_weights, loads, speeds, theta, mu,
+        total_weight, device=device, batched=True)
     if total_weight is None:
         total_weight = torch.stack([torch.sum(b) for b in node_weights])
-    _check("loads", loads, torch.float32, (bsz, k), device)
-    _check("speeds", speeds, torch.float32, (bsz, k), device)
-    _check("mu", mu, torch.float32, (bsz,), device)
-    _check("total_weight", total_weight, torch.float32, (bsz,), device)
-    if theta is not None:
-        _check("theta", theta, torch.float32, (bsz, rows), device)
-    dissat = torch.empty((bsz, rows), dtype=torch.float32, device=device)
-    best = torch.empty((bsz, rows), dtype=torch.int32, device=device)
+    code = _framework_code(framework)
+    dissat = torch.empty_like(node_weights)
+    best = torch.empty_like(row_assignment)
     if rows == 0:
         return dissat, best
-    lib = _build.library()
-    stream = torch.cuda.current_stream(device).cuda_stream
-    status = lib.dissat_from_aggregate_batched(
-        _ptr(aggregate), _ptr(row_assignment), _ptr(node_weights),
-        _ptr(theta), _ptr(loads), _ptr(speeds), _ptr(mu), _ptr(total_weight),
-        _ptr(dissat), _ptr(best), bsz, rows, k, _framework_code(framework),
-        ctypes.c_void_p(stream))
+    status = _entry_point("dissat_from_aggregate_batched")(
+        aggregate.data_ptr(), row_assignment.data_ptr(),
+        node_weights.data_ptr(), None if theta is None else theta.data_ptr(),
+        loads.data_ptr(), speeds.data_ptr(), mu.data_ptr(),
+        total_weight.data_ptr(), dissat.data_ptr(), best.data_ptr(), bsz,
+        rows, k, code, _stream(device))
     _raise_on(status, "dissat_from_aggregate_batched")
     launches["dissat_from_aggregate_batched"] += 1
     return dissat, best

@@ -230,6 +230,145 @@ def test_batched_dissat_kernel_refuses_what_it_does_not_take(card):
             agg[0], r[0], b[0], w[0], w[0], mu, "c")
 
 
+def _rows_operands(card, bsz, n, k, seed, offset=0):
+    """Kernel 3's operands, (B, n, K); the aggregate starts ``offset``
+    floats into its buffer, so an offset that is not a multiple of 4
+    leaves every slab off the 16-byte grid."""
+    rng = np.random.default_rng(seed)
+    flat = rng.uniform(0, 50, bsz * n * k + offset).astype(np.float32)
+    agg = torch.as_tensor(flat, device=card)[offset:].view(bsz, n, k)
+    if n > 2:   # a row of ties, and a machine id outside [0, K)
+        agg[0, 1] = agg[0, 1, 0]
+    r = torch.as_tensor(rng.integers(0, k, (bsz, n)).astype(np.int32),
+                        device=card)
+    if n > 3:
+        r[0, 2] = k + 2
+    b = torch.as_tensor(rng.uniform(0.1, 10, (bsz, n)).astype(np.float32),
+                        device=card)
+    sp = rng.uniform(0.2, 2.0, (bsz, k))
+    speeds = torch.as_tensor((sp / sp.sum(axis=1, keepdims=True))
+                             .astype(np.float32), device=card)
+    loads = torch.as_tensor(rng.uniform(0, 5 * n / k, (bsz, k))
+                            .astype(np.float32), device=card)
+    mu = torch.as_tensor(rng.choice([4.0, 8.0, 16.0], bsz).astype(np.float32),
+                         device=card)
+    total = torch.stack([torch.sum(x) for x in b])
+    return agg, r, b, loads, speeds, mu, total
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [1, 127, 129, 1003])
+@pytest.mark.parametrize("k", sorted(set(D.SPECIALISED_K) | {3, 17, 100,
+                                                             128}))
+def test_dissat_kernels_every_instance_bitwise(card, k, rows):
+    """Kernels 1 and 3 == their twins bitwise at every specialised K and
+    on the runtime-K instance, at row counts around a block's, with slabs
+    on and off the 16-byte grid; kernel 3 at B = 1 == kernel 1; c and ct,
+    theta absent and 0.5."""
+    for offset in (0, 1):
+        agg, r, b, loads, speeds, mu, total = _rows_operands(
+            card, 3, rows, k, seed=k * 10_000 + rows, offset=offset)
+        for framework in ("c", "ct"):
+            for theta in (None, torch.full((3, rows), 0.5, device=card)):
+                got3 = D.dissatisfaction_from_aggregate_batched_cuda(
+                    agg, r, b, loads, speeds, mu, framework, theta=theta,
+                    total_weight=total)
+                twin3 = D.dissatisfaction_from_aggregate_batched_plain(
+                    agg, r, b, loads, speeds, mu, framework, theta=theta,
+                    total_weight=total)
+                th0 = None if theta is None else theta[0]
+                one = D.dissatisfaction_from_aggregate_cuda(
+                    agg[0], r[0], b[0], loads[0], speeds[0], mu[0],
+                    framework, theta=th0, total_weight=total[0])
+                twin1 = D.dissatisfaction_from_aggregate_plain(
+                    agg[0], r[0], b[0], loads[0], speeds[0], mu[0],
+                    framework, theta=th0, total_weight=total[0])
+                at_b1 = D.dissatisfaction_from_aggregate_batched_cuda(
+                    agg[:1], r[:1], b[:1], loads[:1], speeds[:1], mu[:1],
+                    framework, theta=None if theta is None else theta[:1],
+                    total_weight=total[:1])
+                torch.cuda.synchronize()
+                for got, want in ((got3, twin3), (one, twin1),
+                                  ((at_b1[0][0], at_b1[1][0]), one)):
+                    assert torch.equal(got[1], want[1])
+                    assert torch.equal(got[0], want[0])
+
+
+@pytest.mark.gpu
+def test_dissat_kernels_launch_on_the_current_stream(card):
+    """Under ``torch.cuda.stream(s)`` kernels 1 and 3 run on ``s``: their
+    input is written on ``s`` behind a long sleep, so a launch on any other
+    stream would read the NaNs the buffer held before."""
+    agg, r, b, loads, speeds, mu, total = _rows_operands(card, 2, 5000, 16,
+                                                         seed=7)
+    late = torch.full_like(agg, float("nan"))
+    want3 = D.dissatisfaction_from_aggregate_batched_plain(
+        agg, r, b, loads, speeds, mu, "c", total_weight=total)
+    torch.cuda.synchronize()
+    s = torch.cuda.Stream()
+    with torch.cuda.stream(s):
+        torch.cuda._sleep(200_000_000)
+        late.copy_(agg)
+        got3 = D.dissatisfaction_from_aggregate_batched_cuda(
+            late, r, b, loads, speeds, mu, "c", total_weight=total)
+        got1 = D.dissatisfaction_from_aggregate_cuda(
+            late[1], r[1], b[1], loads[1], speeds[1], mu[1], "c",
+            total_weight=total[1])
+    s.synchronize()
+    assert torch.equal(got3[0], want3[0]) and torch.equal(got3[1], want3[1])
+    assert torch.equal(got1[0], want3[0][1])
+    assert torch.equal(got1[1], want3[1][1])
+
+
+@pytest.mark.gpu
+def test_dissat_stream_read_is_the_current_stream(card):
+    """The wrappers read the stream through a private PyTorch call; it
+    must exist and give what the public one gives, on the default stream
+    and under ``torch.cuda.stream(s)``."""
+    assert hasattr(torch._C, "_cuda_getCurrentRawStream"), (
+        "this PyTorch has no torch._C._cuda_getCurrentRawStream: "
+        "repro_torch.kernels.dissatisfaction._stream needs another read")
+    dev = torch.device(card.type, torch.cuda.current_device())
+    assert D._stream(dev) == torch.cuda.current_stream(dev).cuda_stream
+    s = torch.cuda.Stream()
+    with torch.cuda.stream(s):
+        assert D._stream(dev) == s.cuda_stream
+
+
+@pytest.mark.gpu
+def test_dissat_kernels_raise_on_a_refused_launch(card, monkeypatch):
+    """The C entry points refuse K outside [1, 128] and B outside [1,
+    65535] with a status, and a wrapper raises RuntimeError on any status
+    but 0; the next launch is clean."""
+    from repro_torch.kernels import _build
+    lib = _build.library()
+    agg, r, b, loads, speeds, mu, total = _rows_operands(card, 1, 64, 4,
+                                                         seed=8)
+    dissat, best = torch.empty_like(b), torch.empty_like(r)
+    ptrs = [t.data_ptr() for t in (agg, r, b)] + [None] + [
+        t.data_ptr() for t in (loads, speeds, mu, total, dissat, best)]
+    stream = torch.cuda.current_stream().cuda_stream
+    assert lib.dissat_from_aggregate(*ptrs, 64, 0, 0, stream) != 0
+    assert lib.dissat_from_aggregate(*ptrs, 64, 129, 0, stream) != 0
+    assert lib.dissat_from_aggregate_batched(*ptrs, 0, 64, 4, 0, stream) != 0
+    assert lib.dissat_from_aggregate_batched(*ptrs, 65536, 64, 4, 0,
+                                             stream) != 0
+    args = (agg[0], r[0], b[0], loads[0], speeds[0], mu[0], "c")
+    for name in ("dissat_from_aggregate", "dissat_from_aggregate_batched"):
+        D._entry_point(name)
+        monkeypatch.setitem(D._entry_points, name, lambda *a: 1)
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        D.dissatisfaction_from_aggregate_cuda(*args)
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        D.dissatisfaction_from_aggregate_batched_cuda(
+            agg, r, b, loads, speeds, mu, "c")
+    monkeypatch.undo()
+    got = D.dissatisfaction_from_aggregate_cuda(*args)
+    want = D.dissatisfaction_from_aggregate_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
 # ---------------------------------------------------------------------------
 # kernels 6-7: attention.  Tolerances: f32 atol = rtol = 2e-5 (the kernel
 # and its twin sum the same f32 products in different orders); bf16 rtol
