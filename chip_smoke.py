@@ -157,6 +157,8 @@ SPARSE_MAX_DEGREE = 24
 SWEEP_CFG = dict(moves_per_machine=None, move_prob=0.5, epsilon=1e-3)
 SWEEP_CAP = 24            # sweeps allowed to reach the ε-equilibrium
 DEGENERATE_SWEEPS = 256   # run (b): kernel 5 against kernel 4
+HUB_N = 20_000            # phase 7's hub instances (BA, m=2; and a star)
+HUB_DEGREE = 5000         # the star's hub: five of the kernels' chunks
 SPARSE_TURNS = 2048       # run (c): sparse refine, kernel 1 per turn
 SPARSE_VERIFY = 512
 # bytes of operand copies a timing loop of kernels 1 and 3 cycles
@@ -802,14 +804,25 @@ def phase_profile(problem, r0, turns: int = 256):
 # phases 6-9: the sparse path
 # ---------------------------------------------------------------------------
 
-def sparse_instance(n: int, k: int, seed: int = 0, device="cuda"):
+def sparse_instance(n: int, k: int, seed: int = 0, device="cuda",
+                    graph: str = "random_degree"):
     """The reference's sparse benchmark instance
     (``benchmarks/sparse_bench.py::_sparse_instance``), built the same
-    way from the port's verbatim copy of the generators."""
+    way from the port's verbatim copy of the generators.  ``graph``
+    "barabasi" takes ``preferential_attachment_edges(n, m=2)`` instead,
+    whose first nodes are hubs, and "star" adds edges from node 0 to
+    nodes 1..HUB_DEGREE, a row spanning several of the kernels' chunks."""
     from repro_torch.core.sparse import make_sparse_problem
-    from repro_torch.graphs.generators import (random_degree_graph_edges,
+    from repro_torch.graphs.generators import (preferential_attachment_edges,
+                                               random_degree_graph_edges,
                                                random_weights_edges)
-    s, r = random_degree_graph_edges(n, seed=seed)
+    if graph == "barabasi":
+        s, r = preferential_attachment_edges(n, seed=seed, m=2)
+    else:
+        s, r = random_degree_graph_edges(n, seed=seed)
+    if graph == "star":
+        s = np.concatenate([s, np.zeros(HUB_DEGREE, s.dtype)])
+        r = np.concatenate([r, np.arange(1, HUB_DEGREE + 1, dtype=r.dtype)])
     b, w = random_weights_edges(n, s, seed=seed + 1, mean=5.0)
     sp = make_sparse_problem(s, r, w, b, np.ones(k) / k, mu=MU,
                              device=device)
@@ -852,6 +865,9 @@ def check_edge_kernels(D, E, sp, r, theta, label):
                 if not torch.equal(got[0], want[0]):
                     fail(f"kernel 4 dissat not bitwise equal to {name} "
                          f"{tag}: max |diff| {diff}")
+            wants5["a second call"] = E.sweep_candidates_from_edges_cuda(
+                *args, theta=th)
+            torch.cuda.synchronize()
             for name, want in wants5.items():
                 diff = float((sweep[0] - want[0]).abs().max())
                 err = max(err, diff)
@@ -860,10 +876,16 @@ def check_edge_kernels(D, E, sp, r, theta, label):
                     if not torch.equal(a, c):
                         fail(f"kernel 5 {part} != {name} {tag}: max |diff| "
                              f"{float((a.double() - c.double()).abs().max())}")
+            if int(E._ticket(r.device)[0]) != 0:
+                fail(f"kernel 5 left its ticket at "
+                     f"{int(E._ticket(r.device)[0])} {tag}")
+    deg = torch.diff(sp.row_start, append=torch.tensor(
+        [sp.num_edges], dtype=torch.int32, device=sp.row_start.device))
     log(f"  kernels 4, 5 {label}: N={sp.num_nodes} E={sp.num_edges} "
-        f"K={k}: kernel 4 bitwise equal to its twin and to kernel 1 on the "
-        f"sparse aggregate; kernel 5 bitwise equal to its twin and to the "
-        f"election from kernel 4 (c, ct; theta absent and 0.5)")
+        f"K={k}, largest row {int(deg.max())} edges: kernel 4 bitwise equal "
+        f"to its twin and to kernel 1 on the sparse aggregate; kernel 5 "
+        f"bitwise equal to its twin, to the election from kernel 4 and to "
+        f"a second call, its ticket back at 0 (c, ct; theta absent and 0.5)")
     return err
 
 
@@ -875,6 +897,12 @@ def phase_edge_kernels(D, E, sp, r0):
     err = max(err, check_edge_kernels(
         D, E, small, r_small, torch.full((1003,), 0.5, device="cuda"),
         "ragged N=1003"))
+    for graph, k in (("barabasi", SPARSE_K), ("barabasi", 16),
+                     ("star", SPARSE_K)):
+        hub, r_hub = sparse_instance(HUB_N, k, seed=7, graph=graph)
+        err = max(err, check_edge_kernels(
+            D, E, hub, r_hub, torch.full((HUB_N,), 0.5, device="cuda"),
+            f"{graph} hub graph"))
     return err
 
 
@@ -1015,70 +1043,168 @@ def phase_sparse_main(D, E, ops, sp, r0):
             "busy_share": dev_s / wall_rep}
 
 
-def phase_sparse_times(E, sp, r):
+def edge_entries(E, sp, r, b, loads, speeds, mu, total_b):
+    """Calls of kernels 4 and 5's C entry points with the arguments their
+    wrappers pass (no checks, no allocation), and the buffers they write:
+    kernel 4's (dissat, best), kernel 5's (gains, picks, dests) views.
+    ``mu`` and ``total_b`` are device scalars the caller holds."""
+    from repro_torch.kernels.dissatisfaction import _entry_point
+    dev = r.device
+    n, e, k = sp.num_nodes, sp.num_edges, loads.shape[0]
+    ins, _ = E._inputs(sp, r, b, loads, speeds, mu, None, total_b, dev)
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    dissat, best = torch.empty_like(b), torch.empty_like(r)
+    a4 = ins + (dissat.data_ptr(), best.data_ptr(), n, e, k, 0, stream)
+    a5, views = E.sweep_candidates_args(ins, n, e, k, 0, stream, dev)
+    f4 = _entry_point("dissat_from_edges", "edge_block")
+    f5 = _entry_point("sweep_candidates_from_edges", "edge_block")
+    return (lambda: f4(*a4)), (lambda: f5(*a5)), (dissat, best), views
+
+
+def device_launches(fn, calls: int = 4, reps: int = 20):
+    """The device launches of ``calls`` calls of ``fn``, exactly: (kernel
+    nodes a call, other nodes a call) of one CUDA graph that captures the
+    calls, where every launch is a node and none is dropped; then the
+    names of the device kernels the profiler records over ``reps`` calls
+    (it drops some of a window's records: all of four calls' once)."""
+    import ctypes
+
+    from torch.profiler import ProfilerActivity, profile
+    cuda = ctypes.CDLL("libcuda.so.1")
+    cuda.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                     ctypes.POINTER(ctypes.c_size_t)]
+    cuda.cuGraphNodeGetType.argtypes = [ctypes.c_void_p,
+                                        ctypes.POINTER(ctypes.c_int)]
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    raw = graph.raw_cuda_graph()
+    count = ctypes.c_size_t(0)
+    if cuda.cuGraphGetNodes(raw, None, ctypes.byref(count)) != 0:
+        fail("cuGraphGetNodes failed on a captured graph")
+    nodes = (ctypes.c_void_p * count.value)()
+    if cuda.cuGraphGetNodes(raw, nodes, ctypes.byref(count)) != 0:
+        fail("cuGraphGetNodes failed on a captured graph")
+    kinds = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        if cuda.cuGraphNodeGetType(node, ctypes.byref(kind)) != 0:
+            fail("cuGraphNodeGetType failed on a captured graph")
+        kinds.append(kind.value)
+    graph.reset()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    names = sorted({e.key for e in prof.key_averages()
+                    if getattr(e, "device_type", None) is not None
+                    and str(e.device_type).endswith("CUDA")})
+    kernels = kinds.count(0)                   # 0: a kernel node
+    return kernels / calls, (len(kinds) - kernels) / calls, names
+
+
+def phase_sparse_times(E, sp, r, card):
+    """Kernels 4 and 5 at the million-node shape, three ways in turns: CUDA
+    events over wrapper calls, CUDA events over C entry-point calls, and
+    the kernels' device time by the profiler; beside them the twins and
+    ``torch.sparse.mm``.  The 92 MB of inputs exceed the 50 MB L2, so each
+    call reads most of them from device memory without cycling copies."""
     from repro_torch.core.problem import machine_loads
+    from repro_torch.kernels.dissatisfaction import _scalar
     k = sp.num_machines
     n, e = sp.num_nodes, sp.num_edges
     b = sp.node_weights
     total_b = torch.sum(b)
     loads = machine_loads(b, r, k)
-    args = (sp, r, b, loads, sp.speeds, sp.mu, "c")
+    mu = _scalar(sp.mu, r.device)
+    args = (sp, r, b, loads, sp.speeds, mu, "c")
     real = sp.edge_weights != 0
     csr = torch.sparse_coo_tensor(
         torch.stack([sp.senders[real].long(), sp.receivers[real].long()]),
         sp.edge_weights[real], (n, n)).coalesce().to_sparse_csr()
     onehot = (r.long()[:, None] == torch.arange(k, device="cuda")).float()
-
+    e4, e5, out4, out5 = edge_entries(E, sp, r, b, loads, sp.speeds, mu,
+                                      total_b)
     fns = {
         "k4": lambda: E.dissatisfaction_from_edges_cuda(
             *args, total_weight=total_b),
+        "e4": e4,
         "p4": lambda: E.dissatisfaction_from_edges_plain(
             *args, total_weight=total_b),
         "k5": lambda: E.sweep_candidates_from_edges_cuda(
             *args, total_weight=total_b),
+        "e5": e5,
         "p5": lambda: E.sweep_candidates_from_edges_plain(
             *args, total_weight=total_b),
         "lib": lambda: torch.sparse.mm(csr, onehot),
     }
+    # an entry-point call launches and writes what its wrapper returns
+    for entry, wrapper, got in (("e4", "k4", out4), ("e5", "k5", out5)):
+        if fns[entry]() != 0:
+            fail(f"edge kernel entry point {entry} did not launch")
+        want = fns[wrapper]()
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(got, want)):
+            fail(f"{entry}: a launch-only call differs from its wrapper's")
     t = {name: [] for name in fns}
-    for order in (list(fns), list(fns)[::-1]):
+    for order in (list(fns), list(fns)[::-1], list(fns)):
         for name in order:
-            iters = 50 if name in ("k4", "k5", "lib") else 5
+            iters = 5 if name in ("p4", "p5") else 50
             t[name].append(cuda_ms(fns[name], iters))
     ms = {name: float(np.mean(v)) for name, v in t.items()}
-    device_us = kernel_device_us({"dissat_from_edges": (fns["k4"], 20),
-                                  "sweep_candidates_from_edges":
-                                  (fns["k5"], 20)})
+    device_us = kernel_device_us({"dissat_from_edges": (e4, 20),
+                                  "sweep_candidates_from_edges": (e5, 20)})
+    per_call = {"k4": device_launches(fns["k4"]),
+                "k5": device_launches(fns["k5"])}
     f4, i4 = 4, 4
     # each input read once: row offsets, receivers, weights, assignment,
     # node weights, loads, speeds, mu, B; then the outputs written once
+    # (kernel 5's are the three (K,) vectors)
     reads = i4 * n + i4 * e + f4 * e + i4 * n + f4 * n + 2 * f4 * k + 2 * f4
-    tiles = -(-n // 128)
     bytes4 = reads + f4 * n + i4 * n
-    bytes5 = reads + tiles * k * (f4 + 2 * i4)
+    bytes5 = reads + k * (f4 + 2 * i4)
     ops4 = int(e) + n * k * 12     # one add per edge, then the assembly
     out = []
-    for name, byt, flops, kern, plain, line in (
-            ("dissat_from_edges", bytes4, ops4, ms["k4"], ms["p4"], 170),
-            ("sweep_candidates_from_edges", bytes5, ops4 + n * k, ms["k5"],
-             ms["p5"], 245)):
-        t_bytes = 1e3 * byt / PEAK_BYTES_S
-        t_ops = 1e3 * flops / PEAK_F32_FLOPS
+    for name, tag, byt, flops, line in (
+            ("dissat_from_edges", "4", bytes4, ops4, 170),
+            ("sweep_candidates_from_edges", "5", bytes5, ops4 + n * k,
+             245)):
+        bound, by = _bound_ms(byt, flops)
+        dev_us = device_us[name]
+        wrap, entry = ms[f"k{tag}"], ms[f"e{tag}"]
         out.append({"name": name, "route": "cuda",
                     "source": "src/repro_torch/kernels/csrc/edge_block.cu",
                     "replaces": f"src/repro/kernels/edge_block.py:{line}",
-                    "ms": kern, "plain_ms": plain,
-                    "bound_ms": max(t_bytes, t_ops),
-                    "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                    "ms": wrap, "plain_ms": ms[f"p{tag}"],
+                    "bound_ms": bound, "bound_by": by,
                     "library_ms": ms["lib"]})
-        dev_us = device_us[name]
-        log(f"  {name}: kernel {kern:.5f} ms per call ("
-            f"{'not measured' if dev_us is None else f'{dev_us:.2f} us'} "
-            f"on the device), twin {plain:.5f} ms, bound "
-            f"{max(t_bytes, t_ops):.5f} ms "
-            f"({'bytes' if t_bytes >= t_ops else 'operations'}, "
-            f"{byt / 1e6:.1f} MB), library {ms['lib']:.5f} ms "
-            f"(torch.sparse.mm CSR @ one-hot, aggregate only)")
+        log(f"  {name} (kernel {tag}) at (N, E, K)=({n}, {e}, {k}): "
+            f"{wrap:.5f} ms per wrapper call "
+            f"({' '.join(f'{x:.5f}' for x in t['k' + tag])}), {entry:.5f} "
+            f"ms per C entry-point call "
+            f"({' '.join(f'{x:.5f}' for x in t['e' + tag])}), "
+            f"{'not measured' if dev_us is None else f'{dev_us:.2f} us'} on "
+            f"the device by the profiler; {per_call['k' + tag][0]:g} device "
+            f"launches per wrapper call (CUDA graph nodes), of "
+            f"{per_call['k' + tag][2]} [{card}]")
+        dev_ms = entry if dev_us is None else 1e-3 * dev_us
+        log(f"    bound {bound:.5f} ms ({by}, {byt / 1e6:.2f} MB), device "
+            f"time / bound {dev_ms / bound:.3f}, per wrapper call / bound "
+            f"{wrap / bound:.3f}; twin {ms['p' + tag]:.5f} ms; library "
+            f"{ms['lib']:.5f} ms (torch.sparse.mm CSR @ one-hot, aggregate "
+            f"only)")
+    # one launch a call, and that of kernel 5 (no argmax, max or gather
+    # after it)
+    launches, others, names = per_call["k5"]
+    if not (launches == 1 and others == 0 and len(names) == 1
+            and "sweep_candidates_from_edges_kernel" in names[0]):
+        fail(f"kernel 5's wrapper made other device launches than one of "
+             f"its kernel: {launches} kernel and {others} other graph "
+             f"nodes a call, {names}")
     return out
 
 
@@ -2228,7 +2354,7 @@ def main() -> int:
     sparse_run = phase_sparse_main(D, E, ops, sp, r0)
 
     log("== phase 9: sparse times (CUDA events, N=10^6, K=8)")
-    edge_kernels = phase_sparse_times(E, sp, sparse_run["r"])
+    edge_kernels = phase_sparse_times(E, sp, sparse_run["r"], card)
     for rec in edge_kernels:
         rec["launches"] = sparse_run["launches"][rec["name"]]
         rec["max_abs_err"] = err45

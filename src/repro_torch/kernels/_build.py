@@ -45,13 +45,13 @@ SIGNATURES = {
         "cost_matrix": [_F] * 9 + [_I, _I, _I, _I, _F],
     },
     "edge_block": {
-        "edge_block_rows": [],
         # row_start, receivers, weights, assignment, b_rows, theta, loads,
         # speeds, mu, total_b, dissat, best, n, e, k, framework, stream
         "dissat_from_edges": [_F] * 12 + [_I, _I, _I, _I, _F],
-        # the same ten inputs, tile_gain, tile_node, tile_dest, n, e, k,
-        # framework, stream
-        "sweep_candidates_from_edges": [_F] * 13 + [_I, _I, _I, _I, _F],
+        # the same ten inputs, gains, picks, dests, partial (2 x blocks x
+        # K int32), ticket (2 + 2 x 128 int32 zeros), n, e, k, framework,
+        # stream
+        "sweep_candidates_from_edges": [_F] * 15 + [_I, _I, _I, _I, _F],
     },
     "attention": {
         # q, k, v, out, B, S, H, Hkv, D, stream (float32 only)

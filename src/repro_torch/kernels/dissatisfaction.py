@@ -250,15 +250,17 @@ def check_dissat_operands(aggregate, row_assignment, node_weights, loads,
     return bsz, rows, k
 
 
-# the C entry points of csrc/dissatisfaction.cu, bound at first use
+# the C entry points of csrc/*.cu by name (unique across the sources),
+# bound at first use
 _entry_points: dict = {}
 
 
-def _entry_point(name: str):
+def _entry_point(name: str, stem: str = "dissatisfaction"):
+    """The C entry point ``name`` of ``csrc/<stem>.cu``."""
     fn = _entry_points.get(name)
     if fn is None:
         from . import _build
-        fn = _entry_points[name] = getattr(_build.library(), name)
+        fn = _entry_points[name] = getattr(_build.library(stem), name)
     return fn
 
 

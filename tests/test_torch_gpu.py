@@ -108,11 +108,22 @@ def test_kernels_refuse_what_they_do_not_take(card):
         D.cost_matrix_cuda(adj_t.T, r_t, b_t, loads_t, speeds_t, 8.0, "c")
 
 
-def _sparse_on(card, n, k, seed):
+def _sparse_on(card, n, k, seed, graph="random_degree"):
+    """A sparse problem and a random assignment on the card; ``graph``
+    "barabasi" is ``preferential_attachment_edges(n, m=2)`` (its first
+    nodes are hubs), "star" adds edges from node 0 to nodes 1..5000 (a row
+    spanning five of kernels 4-5's chunks)."""
     from repro_torch.core.sparse import make_sparse_problem
-    from repro_torch.graphs.generators import (random_degree_graph_edges,
+    from repro_torch.graphs.generators import (preferential_attachment_edges,
+                                               random_degree_graph_edges,
                                                random_weights_edges)
-    s, r = random_degree_graph_edges(n, seed=seed)
+    if graph == "barabasi":
+        s, r = preferential_attachment_edges(n, seed=seed, m=2)
+    else:
+        s, r = random_degree_graph_edges(n, seed=seed)
+    if graph == "star":
+        s = np.concatenate([s, np.zeros(5000, s.dtype)])
+        r = np.concatenate([r, np.arange(1, 5001, dtype=r.dtype)])
     b, w = random_weights_edges(n, s, seed=seed + 1, mean=5.0)
     rng = np.random.default_rng(seed + 2)
     sp = make_sparse_problem(s, r, w, b, rng.uniform(0.5, 2.0, k), mu=8.0,
@@ -123,15 +134,19 @@ def _sparse_on(card, n, k, seed):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("framework", ["c", "ct"])
-@pytest.mark.parametrize("n,k", [(1003, 8), (300, 128), (5000, 3)])
-def test_edge_kernels_bitwise_twins(card, n, k, framework):
+@pytest.mark.parametrize("n,k,graph", [
+    (1003, 8, "random_degree"), (300, 128, "random_degree"),
+    (5000, 3, "random_degree"), (20000, 8, "barabasi"),
+    (20000, 16, "barabasi"), (20000, 8, "star")])
+def test_edge_kernels_bitwise_twins(card, n, k, graph, framework):
     """Kernel 4 == its twin and == kernel 1 on the window-summed aggregate,
     bitwise; kernel 5 == its twin and == the first-maximum election from
-    kernel 4's output, bitwise; with and without theta."""
+    kernel 4's output, bitwise; with and without theta; on hub graphs
+    whose rows span several chunks too."""
     from repro_torch.core.costs import adjacency_aggregate_sparse
     from repro_torch.core.problem import machine_loads
     from repro_torch.kernels import edge_block as E
-    sp, r = _sparse_on(card, n, k, seed=n + k)
+    sp, r = _sparse_on(card, n, k, seed=n + k, graph=graph)
     b = sp.node_weights
     loads = machine_loads(b, r, k)
     agg = adjacency_aggregate_sparse(sp, r)
@@ -152,6 +167,151 @@ def test_edge_kernels_bitwise_twins(card, n, k, framework):
         for want in (twin5, elected):
             for a, c in zip(sweep, want):
                 assert torch.equal(a, c)
+
+
+@pytest.mark.gpu
+def test_edge_kernels_take_unaligned_edge_arrays(card):
+    """Edge arrays that do not start on 16 bytes (views one element into
+    their buffers) give the same bits as aligned ones."""
+    import dataclasses
+    from repro_torch.core.problem import machine_loads
+    from repro_torch.kernels import edge_block as E
+    sp, r = _sparse_on(card, 20000, 8, seed=4, graph="star")
+    shifted = dataclasses.replace(
+        sp, receivers=torch.cat([sp.receivers[:1], sp.receivers])[1:],
+        edge_weights=torch.cat([sp.edge_weights[:1], sp.edge_weights])[1:])
+    assert shifted.receivers.data_ptr() % 16 != 0
+    loads = machine_loads(sp.node_weights, r, 8)
+    args = (r, sp.node_weights, loads, sp.speeds, sp.mu, "ct")
+    for fn in (E.dissatisfaction_from_edges_cuda,
+               E.sweep_candidates_from_edges_cuda):
+        got, want = fn(shifted, *args), fn(sp, *args)
+        torch.cuda.synchronize()
+        for a, c in zip(got, want):
+            assert torch.equal(a, c)
+
+
+@pytest.mark.gpu
+def test_sweep_kernel_is_deterministic_and_resets_its_ticket(card):
+    """Kernel 5 twice on the same inputs gives the same bits, also with a
+    call of another shape between, and every launch leaves the ticket at
+    zero."""
+    from repro_torch.core.problem import machine_loads
+    from repro_torch.kernels import edge_block as E
+    sp, r = _sparse_on(card, 20000, 8, seed=5, graph="barabasi")
+    small, r_small = _sparse_on(card, 1003, 8, seed=6)
+    args = (sp, r, sp.node_weights, machine_loads(sp.node_weights, r, 8),
+            sp.speeds, sp.mu, "c")
+    first = E.sweep_candidates_from_edges_cuda(*args)
+    E.sweep_candidates_from_edges_cuda(
+        small, r_small, small.node_weights,
+        machine_loads(small.node_weights, r_small, 8), small.speeds,
+        small.mu, "c")
+    for _ in range(3):
+        again = E.sweep_candidates_from_edges_cuda(*args)
+        torch.cuda.synchronize()
+        for a, c in zip(again, first):
+            assert torch.equal(a, c)
+        assert int(E._ticket(r.device)[0]) == 0
+
+
+@pytest.mark.gpu
+def test_sweep_kernel_is_one_launch(card):
+    """Each kernel 5 call adds one to its launch count and makes exactly
+    one device launch, counted by ``chip_smoke.device_launches`` as the
+    kernel nodes of a CUDA graph that captures the calls (the combine is
+    inside the kernel); the profiler names no other kernel."""
+    import importlib.util
+    from pathlib import Path
+
+    from repro_torch.core.problem import machine_loads
+    from repro_torch.kernels import edge_block as E
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    sp, r = _sparse_on(card, 20000, 8, seed=8)
+    b = sp.node_weights
+    args = (sp, r, b, machine_loads(b, r, 8), sp.speeds,
+            D._scalar(sp.mu, r.device), "c")
+    total = torch.sum(b)
+    before = E.launches["sweep_candidates_from_edges"]
+    kernels, others, names = smoke.device_launches(
+        lambda: E.sweep_candidates_from_edges_cuda(*args, total_weight=total),
+        calls=5, reps=20)
+    # a warm-up call, five captured, twenty profiled
+    assert E.launches["sweep_candidates_from_edges"] == before + 26
+    assert (kernels, others) == (1.0, 0.0)
+    assert len(names) == 1, names
+    assert "sweep_candidates_from_edges_kernel" in names[0]
+    assert not E._ticket(r.device).any()
+
+
+@pytest.mark.gpu
+def test_edge_kernels_launch_on_the_current_stream(card):
+    """Under ``torch.cuda.stream(s)`` kernels 4 and 5 run on ``s``: their
+    assignment is written on ``s`` behind a long sleep, so a launch on any
+    other stream would read the machines the buffer held before."""
+    from repro_torch.core.problem import machine_loads
+    from repro_torch.kernels import edge_block as E
+    sp, r = _sparse_on(card, 5000, 8, seed=9)
+    b = sp.node_weights
+    loads = machine_loads(b, r, 8)
+    want4 = E.dissatisfaction_from_edges_plain(sp, r, b, loads, sp.speeds,
+                                               sp.mu, "c")
+    want5 = E.sweep_candidates_from_edges_plain(sp, r, b, loads, sp.speeds,
+                                                sp.mu, "c")
+    late = torch.full_like(r, 99)
+    torch.cuda.synchronize()
+    s = torch.cuda.Stream()
+    with torch.cuda.stream(s):
+        torch.cuda._sleep(200_000_000)
+        late.copy_(r)
+        got4 = E.dissatisfaction_from_edges_cuda(sp, late, b, loads,
+                                                 sp.speeds, sp.mu, "c")
+        got5 = E.sweep_candidates_from_edges_cuda(sp, late, b, loads,
+                                                  sp.speeds, sp.mu, "c")
+    s.synchronize()
+    for got, want in ((got4, want4), (got5, want5)):
+        for a, c in zip(got, want):
+            assert torch.equal(a, c)
+
+
+@pytest.mark.gpu
+def test_edge_kernels_raise_on_a_refused_launch(card, monkeypatch):
+    """The C entry points refuse K outside [1, 128] and kernel 5 a missing
+    scratch with a status, and a wrapper raises RuntimeError on any status
+    but 0; the next launch is clean."""
+    from repro_torch.core.problem import machine_loads
+    from repro_torch.kernels import edge_block as E
+    sp, r = _sparse_on(card, 300, 4, seed=10)
+    b = sp.node_weights
+    loads = machine_loads(b, r, 4)
+    ins, _scalars = E._inputs(sp, r, b, loads, sp.speeds, sp.mu, None, None,
+                              r.device)
+    stream = torch.cuda.current_stream().cuda_stream
+    f4 = D._entry_point("dissat_from_edges", "edge_block")
+    f5 = D._entry_point("sweep_candidates_from_edges", "edge_block")
+    dis, best = torch.empty_like(b), torch.empty_like(r)
+    n, e = sp.num_nodes, sp.num_edges
+    for k in (0, 129):
+        assert f4(*ins, dis.data_ptr(), best.data_ptr(), n, e, k, 0,
+                  stream) != 0
+    a5, _ = E.sweep_candidates_args(ins, n, e, 4, 0, stream, r.device)
+    assert f5(*a5[:13], None, *a5[14:]) != 0      # no partials
+    args = (sp, r, b, loads, sp.speeds, sp.mu, "c")
+    for name in ("dissat_from_edges", "sweep_candidates_from_edges"):
+        monkeypatch.setitem(D._entry_points, name, lambda *a: 1)
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        E.dissatisfaction_from_edges_cuda(*args)
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        E.sweep_candidates_from_edges_cuda(*args)
+    monkeypatch.undo()
+    got = E.sweep_candidates_from_edges_cuda(*args)
+    want = E.sweep_candidates_from_edges_plain(*args)
+    torch.cuda.synchronize()
+    for a, c in zip(got, want):
+        assert torch.equal(a, c)
 
 
 @pytest.mark.gpu
