@@ -4,8 +4,10 @@ end to end at N=16384, K=16, the sparse sweep runtime at the reference's
 million-node instance (N=10^6, E=9,002,624, K=8), the batched fleets
 (32 dense problems of N=4096, K=16; 4 sparse ones of N=65536, K=8), the
 dense LM serving path (qwen1.5-4b at full width, 48 requests through the
-continuous-batching engine) and the SSM serving path (mamba2-1.3b at full
-width, the same traffic), times every kernel, and checks the results.
+continuous-batching engine), the SSM serving path (mamba2-1.3b at full
+width, the same traffic) and the paper's Time-Warp DES with periodic
+refinement (N=2048, K=16; a fleet of 8 at N=1024), times every kernel, and
+checks the results.
 
   python3 chip_smoke.py          # needs one CUDA card and nvcc
 
@@ -123,6 +125,26 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      tensor-core peak) and its twin, the device time of its three passes
      from CUDA events around a loop that only calls the C entry point, each
      pass's share by the profiler, and the f32 instance at the same shape.
+
+ 20. the DES — ``benchmarks/fig7_8_simtime.py``'s Fig. 8 setup at N=2048
+     (``specialized_geometric``, degrees 3-12, so E=48 and H=96 by the
+     benchmark's formula), K=16 with speeds from ``random_churn(16, 32,
+     1024)``, the benchmark's flood workload (24 threads, 4 windows of 60,
+     scope 2, at most 3 a source), inter/intra delays 8/1, framework c,
+     ``refine_freq=2048``, ``refine_max_turns=1024``: the refined run
+     (kernel 1 every refinement turn) and a static run, both to drain with
+     nothing dropped or evicted and every thread seen by exactly its hop
+     closure; the first 4 refinement rounds again on kernel 1's plain twin,
+     every ``DESState`` field bitwise equal; 512 ticks replayed from CUDA
+     graphs against eager ticks, bitwise; a profiled window of 64 ticks
+     and one tick's device launches;
+ 21. the DES fleet and the remaining core — ``run_simulation_batch`` over 8
+     scenarios at N=1024 (graphs, workloads and churn from seeds 0-7),
+     refining through kernel 3, every element bitwise its lone run on
+     kernel 1; then on a dense N=4096, K=16 problem: ``refine``,
+     ``simulated_annealing`` (2048 steps), ``equalize_cardinality`` and
+     ``count_discrepancies`` over 512 traced ct turns, each checked and
+     timed.
 
 Each path's launch counts are set to 0 just before it and read just after.
 The line before the last two is the kernels' JSON record; then the card's
@@ -242,8 +264,41 @@ SSD_SHAPES = ((1, 3072, 64, 64, 128, torch.bfloat16, False),
 # inputs are widened exactly on both sides, so they need no more
 SSD_TOL = 3e-4
 
+# phases 20-21: the DES (benchmarks/fig7_8_simtime.py's Fig. 8 model at
+# size), its fleet, and the remaining core.  At N=4096 a tick takes
+# 2.1-2.7 ms on the card and the two runs to drain take 32.6k and 52.5k
+# ticks (80 + 115 s, tools/des_probe.py); N=2048 halves the busy time an
+# event takes (resident LPs x proc_ticks) and with it the ticks to drain.
+# 64 threads are the most that drain at N=2048 with nothing dropped or
+# evicted, refined and static (tools/des_probe.py --largest: 96, 128, 192
+# and 256 overflow the 48-slot event lists); the benchmark has 24 at N=96.
+DES_N = 2048
+DES_K = 16
+DES_THREADS = 64
+DES_WINDOWS = 4
+DES_WINDOW_TIME = 60.0
+DES_SCOPE = 2
+DES_REFINE_FREQ = 2048
+DES_REFINE_TURNS = 1024
+DES_MAX_TICKS = 400_000
+DES_CHURN = (32, 1024)      # random_churn: segments, ticks a segment
+DES_PARITY_ROUNDS = 4       # refinement rounds held kernel vs twin path
+DES_EAGER_TICKS = 512       # ticks held graph-replayed vs eager
+DES_PROFILE_TICKS = 64
+DES_FLEET_B = 8
+DES_FLEET_N = 1024
+DES_FLEET_THREADS = 24
+DES_FLEET_REFINE_FREQ = 512
+DES_FLEET_TURNS = 512
+DES_FLEET_CHURN = (32, 256)
+ANNEAL_N = 4096
+ANNEAL_K = 16
+ANNEAL_STEPS = 2048
+ANNEAL_TRACE_TURNS = 512
+
 # H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s, f32 FLOP/s
 # outside the tensor cores, dense bf16 FLOP/s on the tensor cores
+
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
@@ -2279,6 +2334,368 @@ def ssd_times(S8, card):
     return rec
 
 
+
+# ---------------------------------------------------------------------------
+# phases 20-21: the DES, its fleet, and the remaining core
+# ---------------------------------------------------------------------------
+
+def des_instance(n: int, k: int, threads: int, seed: int, refine_freq: int,
+                 refine_turns: int, churn: tuple[int, int]):
+    """``benchmarks/fig7_8_simtime.py``'s Fig. 8 setup at size: the
+    specialized geometric graph, the moving hot-spot flood workload, an
+    Appendix-A initial partition and a ``random_churn`` schedule.  Returns
+    (config, adjacency on the device, the initial state, the schedule,
+    the workload)."""
+    from repro_torch.core.initial import initial_partition
+    from repro_torch.des import engine, scenarios
+    from repro_torch.des.workload import flooded_packet_workload
+    from repro_torch.graphs.generators import specialized_geometric
+    adj = specialized_geometric(n, seed)
+    deg = int((adj > 0).sum(1).max())
+    spec = flooded_packet_workload(
+        adj, seed, num_threads=threads, num_windows=DES_WINDOWS,
+        window_sim_time=DES_WINDOW_TIME, scope=DES_SCOPE, max_per_lp=3)
+    cfg = engine.DESConfig(
+        num_lps=n, num_machines=k, num_threads=threads,
+        event_capacity=max(48, 2 * deg + 8),
+        history_capacity=max(96, 4 * deg + 16), inter_delay=8,
+        intra_delay=1, refine_freq=refine_freq, refine_framework="c",
+        refine_max_turns=refine_turns, max_ticks=DES_MAX_TICKS)
+    adj_t = torch.as_tensor(adj, device="cuda")
+    m0 = initial_partition(adj_t, k, generator=seed)
+    state = engine.make_initial_state(cfg, m0, spec.src, spec.time,
+                                      spec.count, device="cuda")
+    return cfg, adj_t, state, scenarios.random_churn(k, *churn, seed=seed), \
+        spec
+
+
+def des_fields(state, prefix=""):
+    """(name, tensor) for every field of a ``DESState``, nested ones too."""
+    for name in state._fields:
+        value = getattr(state, name)
+        if isinstance(value, tuple):
+            yield from des_fields(value, f"{prefix}{name}.")
+        else:
+            yield f"{prefix}{name}", value
+
+
+def des_differ(a, b) -> list[str]:
+    return [name for (name, x), (_, y) in zip(des_fields(a), des_fields(b))
+            if not torch.equal(x, y)]
+
+
+def flood_closure_ok(adj, spec, seen) -> bool:
+    """The DES's own oracle (``tests/test_des.py``): every thread is seen
+    by exactly the LPs within its hop budget of its source."""
+    nbr = (adj > 0).to(torch.float32)
+    src = torch.as_tensor(spec.src.astype(np.int64), device=adj.device)
+    hops = torch.as_tensor(spec.count.astype(np.int64), device=adj.device)
+    mask = torch.zeros((len(spec.src), adj.shape[0]), dtype=torch.bool,
+                       device=adj.device)
+    mask[torch.arange(len(spec.src), device=adj.device), src] = True
+    for hop in range(1, int(spec.count.max()) + 1):
+        grown = mask | ((mask.to(torch.float32) @ nbr) > 0)
+        mask = torch.where((hops >= hop)[:, None], grown, mask)
+    return torch.equal(mask.T, seen)
+
+
+def _des_summary(label, out, wall, card) -> str:
+    ticks = int(out.tick)
+    return (f"  {label}: {ticks} ticks, processed {int(out.processed)}, "
+            f"rollbacks {int(out.rollbacks)}, refines {int(out.refines)}, "
+            f"moves {int(out.moves)}, dropped {int(out.dropped)}, "
+            f"hist_evict {int(out.hist_evict)}, drained {bool(out.done)}, "
+            f"{wall:.3f} s, {1e3 * wall / max(ticks, 1):.4f} ms per tick "
+            f"[{card}]")
+
+
+def _des_checks(label, out, adj, spec):
+    if not bool(out.done):
+        fail(f"{label}: the DES did not drain in {int(out.tick)} ticks")
+    if int(out.dropped) or int(out.hist_evict):
+        fail(f"{label}: dropped {int(out.dropped)}, hist_evict "
+             f"{int(out.hist_evict)} (both must be 0)")
+    if not flood_closure_ok(adj, spec, out.seen):
+        fail(f"{label}: a thread's seen set is not its hop closure")
+
+
+def phase_des(D, card):
+    """The DES at size: a refined run and a static run to drain, kernel 1
+    against its twin over the first refinement rounds, a profiled window
+    of ticks."""
+    import dataclasses
+
+    from repro_torch.core.batch import stack_pytrees
+    from repro_torch.des import engine
+    from repro_torch.kernels.ops import make_aggregate_dissat_fn_plain
+    sync = torch.cuda.synchronize
+
+    t0 = time.perf_counter()
+    cfg, adj, s0, churn, spec = des_instance(
+        DES_N, DES_K, DES_THREADS, SEED, DES_REFINE_FREQ, DES_REFINE_TURNS,
+        DES_CHURN)
+    sync()
+    log(f"  set-up {time.perf_counter() - t0:.1f} s: specialized_geometric("
+        f"{DES_N}, seed={SEED}), E={cfg.event_capacity}, "
+        f"H={cfg.history_capacity}, T={DES_THREADS}, K={DES_K}, "
+        f"refine_freq={cfg.refine_freq}, framework c, max turns "
+        f"{cfg.refine_max_turns}, random_churn{DES_CHURN}")
+    prefix_cfg = dataclasses.replace(
+        cfg, max_ticks=DES_PARITY_ROUNDS * cfg.refine_freq)
+
+    # the main path, counted: to the end of the first rounds, then on to
+    # the drain from there (the run resumes bitwise where it stopped)
+    D.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    sync()
+    t0 = time.perf_counter()
+    prefix = engine.run_simulation(prefix_cfg, adj, s0, churn)
+    sync()
+    t_prefix = time.perf_counter() - t0
+    refined = engine.run_simulation(cfg, adj, prefix, churn)
+    sync()
+    wall = time.perf_counter() - t0
+    launches = dict(D.launches)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(_des_summary("refined (kernel 1)", refined, wall, card))
+    log(f"  peak device memory {peak:.2f} GB; launches over the refined "
+        f"run: {launches}")
+    _des_checks("refined run", refined, adj, spec)
+    if int(refined.refines) < 1 or launches["dissat_from_aggregate"] <= 0:
+        fail("the refined DES made no refinement round on kernel 1")
+
+    sync()
+    t0 = time.perf_counter()
+    twin = engine.run_simulation(prefix_cfg, adj, s0, churn,
+                                 dissat_fn=make_aggregate_dissat_fn_plain())
+    sync()
+    t_twin = time.perf_counter() - t0
+    differ = des_differ(prefix, twin)
+    log(f"  kernel path vs twin path over the first {int(prefix.refines)} "
+        f"refinement rounds ({int(prefix.tick)} ticks): every DESState field"
+        f" bitwise equal: {not differ} ({t_prefix:.3f} s / {t_twin:.3f} s)")
+    if differ or int(prefix.refines) < min(DES_PARITY_ROUNDS,
+                                           int(refined.refines)):
+        fail(f"DES kernel path differs from its twin path in {differ}")
+
+    # the run loop replays CUDA graphs of ticks; eager ticks must agree
+    window = dataclasses.replace(cfg, max_ticks=DES_EAGER_TICKS)
+    graphed = engine.run_simulation(window, adj, s0, churn)
+    eager = engine._run_lone(window, adj, s0, churn, None, graph_ticks=0)
+    differ = des_differ(graphed, eager)
+    log(f"  {DES_EAGER_TICKS} ticks replayed from CUDA graphs of "
+        f"{engine._GRAPH_TICKS} ticks vs run eagerly: every field bitwise "
+        f"equal: {not differ}")
+    if differ:
+        fail(f"graph-replayed DES ticks differ from eager ones in {differ}")
+
+    static_cfg = dataclasses.replace(cfg, refine_freq=0)
+    torch.cuda.reset_peak_memory_stats()
+    sync()
+    t0 = time.perf_counter()
+    static = engine.run_simulation(static_cfg, adj, s0, churn)
+    sync()
+    swall = time.perf_counter() - t0
+    speak = torch.cuda.max_memory_allocated() / 1e9
+    log(_des_summary("static (refine_freq=0)", static, swall, card))
+    log(f"  peak device memory {speak:.2f} GB")
+    _des_checks("static run", static, adj, spec)
+    log(f"  refinement changed the simulation's ticks by "
+        f"{100 * (int(refined.tick) - int(static.tick)) / int(static.tick):+.2f}"
+        f" %, its rollbacks by {int(refined.rollbacks) - int(static.rollbacks)}")
+
+    out = {"launches": launches, "ticks": int(refined.tick),
+           "static_ticks": int(static.tick),
+           "ms_per_tick": 1e3 * wall / int(refined.tick),
+           "static_ms_per_tick": 1e3 * swall / int(static.tick),
+           "peak_gb": peak}
+    # a profiled window of the run loop's graph replays, from the state
+    # after the first rounds (mid-run), with its graph already captured
+    stack = stack_pytrees([prefix])
+    nbr, sched = engine._device_inputs(adj, prefix, churn, lone=True)
+    ticks = engine._Ticks(cfg, nbr, stack, engine._speeds_fn(cfg, stack,
+                                                              sched))
+    ticks.advance(engine._GRAPH_TICKS)
+    _, pwall, dev_s, dev_launches, top = busy_share(
+        lambda: ticks.advance(DES_PROFILE_TICKS))
+    log(f"  profiled {DES_PROFILE_TICKS} graph-replayed ticks from tick "
+        f"{int(prefix.tick)}: wall {1e3 * pwall / DES_PROFILE_TICKS:.4f} "
+        f"ms/tick, device {1e3 * dev_s / DES_PROFILE_TICKS:.4f} ms/tick, "
+        f"busy share {dev_s / pwall:.4f}, {dev_launches / DES_PROFILE_TICKS:.1f}"
+        f" kernels per tick recorded by the profiler")
+    for ev in top:
+        log(f"    {ev.key[:60]:60s} {ev.count:6d} x "
+            f"{ev.self_device_time_total / max(ev.count, 1):8.2f} us")
+    per_tick, other, _ = device_launches(
+        lambda: engine._tick(cfg, nbr, stack, sched.speeds[:, 0]), calls=2,
+        reps=2)
+    log(f"  one tick captured in a CUDA graph: {per_tick:.1f} kernel nodes, "
+        f"{other:.1f} other nodes (the host launches one graph per "
+        f"{engine._GRAPH_TICKS} ticks)")
+    out.update(busy=dev_s / pwall, launches_per_tick=per_tick)
+    return out
+
+
+def phase_des_fleet(D, card):
+    """``run_simulation_batch`` over a fleet, refinement through kernel 3;
+    the whole run again on kernel 3's twin, bitwise; every element bitwise
+    its lone run (kernel 1)."""
+    from repro_torch.core.batch import stack_pytrees, unstack_pytree
+    from repro_torch.des import engine, scenarios
+    from repro_torch.kernels.ops import make_aggregate_dissat_fn_plain
+    sync = torch.cuda.synchronize
+
+    t0 = time.perf_counter()
+    elements = [des_instance(DES_FLEET_N, DES_K, DES_FLEET_THREADS, SEED + b,
+                             DES_FLEET_REFINE_FREQ, DES_FLEET_TURNS,
+                             DES_FLEET_CHURN)
+                for b in range(DES_FLEET_B)]
+    cfgs = {(e[0].event_capacity, e[0].history_capacity) for e in elements}
+    if len(cfgs) != 1:
+        fail(f"fleet elements need one capacity; got {cfgs}")
+    cfg = elements[0][0]
+    adjs = torch.stack([e[1] for e in elements])
+    states = stack_pytrees([e[2] for e in elements])
+    scheds = scenarios.stack_schedules([e[3] for e in elements])
+    sync()
+    log(f"  set-up {time.perf_counter() - t0:.1f} s: B={DES_FLEET_B}, "
+        f"specialized_geometric({DES_FLEET_N}, seed {SEED}.."
+        f"{SEED + DES_FLEET_B - 1}), T={DES_FLEET_THREADS}, K={DES_K}, "
+        f"E={cfg.event_capacity}, "
+        f"refine_freq={cfg.refine_freq}, framework c")
+    D.reset_launches()
+    sync()
+    t0 = time.perf_counter()
+    fleet = engine.run_simulation_batch(cfg, adjs, states, scheds)
+    sync()
+    wall = time.perf_counter() - t0
+    launches = dict(D.launches)
+    ticks = fleet.tick.tolist()
+    log(f"  fleet: ticks {min(ticks)}-{max(ticks)}, refines "
+        f"{fleet.refines.tolist()}, moves {fleet.moves.tolist()}, "
+        f"{wall:.3f} s, {1e3 * wall / max(ticks):.4f} ms per fleet tick, "
+        f"{sum(ticks) / wall:.1f} element-ticks/s [{card}]")
+    log(f"  launches over the fleet run: {launches}")
+    if launches["dissat_from_aggregate_batched"] <= 0 \
+            or launches["dissat_from_aggregate"] != 0:
+        fail("the fleet DES must refine on kernel 3 and never on kernel 1")
+
+    # kernel 3 against its twin at the shapes this run gives it: each
+    # round refines the sub-batch of elements whose cadence hits
+    twin3 = make_aggregate_dissat_fn_plain(batched=True)
+    widths = set()
+
+    def twin_fn(aggregate, *args, **kwargs):
+        widths.add(aggregate.shape[0])
+        return twin3(aggregate, *args, **kwargs)
+
+    sync()
+    t0 = time.perf_counter()
+    twin = engine.run_simulation_batch(cfg, adjs, states, scheds,
+                                       dissat_fn=twin_fn)
+    sync()
+    differ = des_differ(fleet, twin)
+    log(f"  kernel 3 path vs its twin path over the whole fleet run (rounds "
+        f"on sub-batches of {sorted(widths)} elements, N={DES_FLEET_N}, "
+        f"K={DES_K}): every DESState field bitwise equal: {not differ} "
+        f"({time.perf_counter() - t0:.3f} s)")
+    if differ or not widths:
+        fail(f"the fleet DES on kernel 3 differs from its twin path in "
+             f"{differ} (rounds on {sorted(widths)} elements)")
+    lone_ticks = 0
+    lone_wall = 0.0
+    for b, (_, adj, s0, churn, spec) in enumerate(elements):
+        got = unstack_pytree(fleet, b)
+        _des_checks(f"fleet element {b}", got, adj, spec)
+        sync()
+        t0 = time.perf_counter()
+        lone = engine.run_simulation(cfg, adj, s0, churn)
+        sync()
+        lone_wall += time.perf_counter() - t0
+        lone_ticks += int(lone.tick)
+        differ = des_differ(lone, got)
+        if differ:
+            fail(f"fleet element {b} differs from its lone run in {differ}")
+    log(f"  every element bitwise its lone run (kernel 1); lone runs "
+        f"{lone_ticks / lone_wall:.1f} element-ticks/s against the fleet's "
+        f"{sum(ticks) / wall:.1f}")
+    return {"launches": launches, "ticks": ticks,
+            "element_ticks_per_s": sum(ticks) / wall,
+            "lone_element_ticks_per_s": lone_ticks / lone_wall}
+
+
+def phase_core_rest(card):
+    """``simulated_annealing``, ``equalize_cardinality`` and
+    ``count_discrepancies`` on a dense problem at size."""
+    from repro_torch.core import (count_discrepancies, costs,
+                                  equalize_cardinality, simulated_annealing)
+    from repro_torch.core.problem import make_problem
+    from repro_torch.core.refine import refine, refine_traced
+    from repro_torch.graphs.generators import random_degree_graph, \
+        random_weights
+    n = ANNEAL_N
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    adj = random_degree_graph(n, seed=SEED + 5, dmin=3, dmax=6)
+    node_w, edge_w = random_weights(adj, seed=SEED + 6, mean=5.0)
+    speeds = np.random.default_rng(SEED + 7).uniform(0.5, 2.0, ANNEAL_K)
+    problem = make_problem(edge_w, node_w, speeds, mu=MU, device="cuda")
+    r0 = torch.as_tensor(np.random.default_rng(SEED + 8).integers(
+        0, ANNEAL_K, n).astype(np.int32), device="cuda")
+    res, t_ref = timed(lambda: refine(problem, r0, "c", max_turns=400_000))
+    r = res.assignment
+    start = float(costs.global_cost(problem, r, "c"))
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    ann, t_ann = timed(lambda: simulated_annealing(
+        problem, r, gen, "c", steps=ANNEAL_STEPS))
+    best = float(ann.cost)
+    again = float(costs.global_cost(problem, ann.assignment, "c"))
+    log(f"  refine to equilibrium first ({int(res.num_moves)} moves, "
+        f"{t_ref:.3f} s); simulated_annealing {ANNEAL_STEPS} steps: "
+        f"{int(ann.accepted)} accepted, C_0 {start:.6e} -> {best:.6e}, "
+        f"{t_ann:.3f} s, {1e3 * t_ann / ANNEAL_STEPS:.4f} ms per step "
+        f"[{card}]")
+    if not (best <= start and math.isfinite(best)
+            and abs(again - best) <= 1e-3 * abs(best)
+            and tuple(ann.trace.shape) == (ANNEAL_STEPS,)
+            and bool(torch.isfinite(ann.trace).all())):
+        fail("simulated_annealing: the best cost rose, is not its "
+             "assignment's cost, or the trace is not finite")
+    eq, t_eq = timed(lambda: equalize_cardinality(problem, r, "c"))
+    counts = torch.bincount(eq.long(), minlength=ANNEAL_K)
+    before = torch.bincount(r.long(), minlength=ANNEAL_K)
+    over = (before > n // ANNEAL_K)[r.long()]
+    moved = eq != r
+    log(f"  equalize_cardinality: {int(moved.sum())} moves (excess "
+        f"{int(torch.clamp(before - n // ANNEAL_K, min=0).sum())}), "
+        f"{t_eq:.3f} s [{card}]")
+    if not bool((counts == n // ANNEAL_K).all()) \
+            or bool((moved & ~over).any()):
+        fail("equalize_cardinality: sizes not equal, or a node left a "
+             "machine that was not over-full")
+    (tres, trace), t_tr = timed(lambda: refine_traced(
+        problem, r0, "ct", max_turns=ANNEAL_TRACE_TURNS))
+    initial = costs.global_cost_c0(problem, r0)
+    count, t_cd = timed(lambda: count_discrepancies(trace, "ct", initial))
+    c0 = np.concatenate([[np.float32(initial.item())],
+                         trace.c0.cpu().numpy()]).astype(np.float32)
+    host = int(np.sum((c0[1:] - c0[:-1] > np.float32(1e-4) * np.abs(c0[:-1]))
+                      & trace.moved.cpu().numpy()))
+    log(f"  count_discrepancies over {ANNEAL_TRACE_TURNS} traced ct turns "
+        f"({int(tres.num_moves)} moves, {t_tr:.3f} s): {int(count)} C_0 "
+        f"ascents, {1e3 * t_cd:.3f} ms; host recount {host} [{card}]")
+    if int(count) != host:
+        fail("count_discrepancies disagrees with its host recount")
+    return {"anneal_ms_per_step": 1e3 * t_ann / ANNEAL_STEPS,
+            "equalize_s": t_eq, "discrepancies": int(count)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke run needs one GPU")
@@ -2417,6 +2834,19 @@ def main() -> int:
     rec8["max_abs_err"] = err8
     kernels.append(rec8)
     del params, engine
+    torch.cuda.empty_cache()
+
+    log(f"== phase 20: the DES at N={DES_N}, K={DES_K} (refine_freq "
+        f"{DES_REFINE_FREQ}: kernel 1 per turn), and a static run")
+    des = phase_des(D, card)
+    log(f"== phase 21: the DES fleet (B={DES_FLEET_B}, N={DES_FLEET_N}: "
+        f"kernel 3 per batched turn) and the remaining core at N={ANNEAL_N}")
+    des_fleet = phase_des_fleet(D, card)
+    phase_core_rest(card)
+    log(f"  DES launches: kernel 1 {des['launches']['dissat_from_aggregate']}"
+        f" (phase 20), kernel 3 "
+        f"{des_fleet['launches']['dissat_from_aggregate_batched']} "
+        f"(phase 21)")
     log(f"  total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -584,3 +584,24 @@ def _mover_buffer(accept: torch.Tensor, size: int) -> torch.Tensor:
     buf = torch.zeros(size + 1, dtype=torch.int64, device=accept.device)
     buf[slot] = torch.arange(accept.shape[0], device=accept.device)
     return buf[:size]
+
+
+def count_discrepancies(trace: Trace, framework: str, initial_other,
+                        rel_tol: float = 1e-4) -> torch.Tensor:
+    """§5.1: a C_0-discrepancy is a move that *increases* C_0 while using
+    Ct_i as the local criterion (and vice versa).  ``framework`` names the
+    criterion that *was* used; we count ascents of the OTHER potential.
+    ``initial_other`` is that potential's value before the first turn.
+
+    ``rel_tol`` sets what counts as an ascent: the potentials are O(1e6)
+    f32 sums over N^2 terms, so sub-1e-5-relative deltas are accumulation
+    noise; 1e-4 keeps every O(0.01%)-or-larger true ascent while rejecting
+    noise.  The paper does not publish its counting rule; the claim
+    reproduced is the ORDERING: Ct_0-discrepancies >> C_0-ones.
+    """
+    other = trace.c0 if framework == costs.CT_FRAMEWORK else trace.ct0
+    first = torch.as_tensor(initial_other, dtype=other.dtype,
+                            device=other.device).reshape(1)
+    prev = torch.cat([first, other[:-1]])
+    ascent = (other - prev > rel_tol * torch.abs(prev)) & trace.moved
+    return torch.sum(ascent.to(torch.int32))

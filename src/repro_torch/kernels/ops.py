@@ -119,6 +119,21 @@ def make_aggregate_dissat_fn_batched() -> DissatFn:
     return fn
 
 
+def make_aggregate_dissat_fn_plain(batched: bool = False) -> DissatFn:
+    """The 9-argument ``dissat_fn`` convention on the plain twin of kernel
+    1 (``batched=False``, ``refine``'s seam) or of kernel 3
+    (``batched=True``, ``refine_batched``'s) on any device: the path that
+    checks of a kernel path compare against."""
+    twin = (dissatisfaction_from_aggregate_batched_plain if batched
+            else dissatisfaction_from_aggregate_plain)
+
+    def fn(aggregate, assignment, node_weights, loads, speeds, mu,
+           framework, total_weight, theta=None):
+        return twin(aggregate, assignment, node_weights, loads, speeds, mu,
+                    framework, theta=theta, total_weight=total_weight)
+    return fn
+
+
 def make_edge_dissat_fn(problem) -> DissatFn:
     """The ``dissat_fn`` convention on the edge-block kernel (kernel 4,
     DESIGN.md §13.3): the per-sweep reduction is recomputed straight from

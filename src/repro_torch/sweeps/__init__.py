@@ -2,9 +2,8 @@
 §12), PyTorch port of ``repro.sweeps``.
 
 ``SweepSpec → run_sweep → SweepResult`` for the partition game, plus the
-stacking and reduction helpers.  The batched DES names of the reference
-(``run_simulation_batch``, ``pad_segments``, ``stack_schedules``) come
-with the DES slice of the port.
+stacking/reduction helpers the batched DES entry point
+(:func:`repro_torch.des.engine.run_simulation_batch`) shares.
 """
 from ..core.batch import (  # noqa: F401
     batch_size,
@@ -16,6 +15,8 @@ from ..core.batch import (  # noqa: F401
     stack_pytrees,
     unstack_pytree,
 )
+from ..des.engine import run_simulation_batch  # noqa: F401
+from ..des.scenarios import pad_segments, stack_schedules  # noqa: F401
 from .metrics import load_cv, load_cv_trace, time_averaged_cv  # noqa: F401
 from .runtime import (  # noqa: F401
     SweepCase,

@@ -215,21 +215,26 @@ def test_sweep_kernel_is_deterministic_and_resets_its_ticket(card):
         assert int(E._ticket(r.device)[0]) == 0
 
 
+def _smoke():
+    """``chip_smoke.py`` as a module, for its helpers."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
 @pytest.mark.gpu
 def test_sweep_kernel_is_one_launch(card):
     """Each kernel 5 call adds one to its launch count and makes exactly
     one device launch, counted by ``chip_smoke.device_launches`` as the
     kernel nodes of a CUDA graph that captures the calls (the combine is
     inside the kernel); the profiler names no other kernel."""
-    import importlib.util
-    from pathlib import Path
-
     from repro_torch.core.problem import machine_loads
     from repro_torch.kernels import edge_block as E
-    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
-    spec = importlib.util.spec_from_file_location("chip_smoke", path)
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
+    smoke = _smoke()
     sp, r = _sparse_on(card, 20000, 8, seed=8)
     b = sp.node_weights
     args = (sp, r, b, machine_loads(b, r, 8), sp.speeds,
@@ -839,3 +844,86 @@ def test_ssd_scan_bf16_refuses_past_its_widths(card):
     torch.cuda.synchronize()
     _ssd_close(got[0], want[0])
     _ssd_close(got[1], want[1])
+
+
+def _des_instance(card, max_ticks, seed=1):
+    """The DES at n=512, K=8 on the card, refined every 256 ticks; the
+    workload from ``seed``.  Returns (config, adjacency, state, schedule)."""
+    from repro_torch.core.initial import initial_partition
+    from repro_torch.des import engine, scenarios
+    from repro_torch.des.workload import flooded_packet_workload
+    from repro_torch.graphs.generators import specialized_geometric
+    n, k, t = 512, 8, 32
+    adj = specialized_geometric(n, 0)
+    spec = flooded_packet_workload(adj, seed, num_threads=t,
+                                   window_sim_time=60.0, scope=2,
+                                   max_per_lp=3)
+    cfg = engine.DESConfig(num_lps=n, num_machines=k, num_threads=t,
+                           event_capacity=48, history_capacity=96,
+                           inter_delay=8, refine_freq=256,
+                           refine_max_turns=512, refine_theta_scale=0.5,
+                           migration_freeze=0.1, max_ticks=max_ticks)
+    m0 = initial_partition(torch.as_tensor(adj, device=card), k, 0)
+    state = engine.make_initial_state(cfg, m0, spec.src, spec.time,
+                                      spec.count, device=card)
+    return cfg, adj, state, scenarios.random_churn(k, 8, 300, seed=2)
+
+
+def _des_run(card, dissat_fn, max_ticks, graph_ticks=None):
+    """:func:`_des_instance` run through ``refine`` with ``dissat_fn``
+    (None: kernel 1); ``graph_ticks`` the run loop's CUDA-graph length
+    (None: its default; 0: eager ticks)."""
+    from repro_torch.des import engine
+    cfg, adj, state, churn = _des_instance(card, max_ticks)
+    if graph_ticks is None:
+        return engine.run_simulation(cfg, adj, state, churn,
+                                     dissat_fn=dissat_fn)
+    return engine._run_lone(cfg, adj, state, churn, dissat_fn, graph_ticks)
+
+
+@pytest.mark.gpu
+def test_des_kernel_path_bitwise_twin_path(card):
+    """The DES refining through kernel 1 reaches, field by field, the
+    state it reaches through kernel 1's plain twin."""
+    from repro_torch.kernels.ops import make_aggregate_dissat_fn_plain
+    D.reset_launches()
+    got = _des_run(card, None, 1800)
+    launched = D.launches["dissat_from_aggregate"]
+    want = _des_run(card, make_aggregate_dissat_fn_plain(), 1800)
+    assert int(got.refines) >= 4 and launched > 0
+    assert _smoke().des_differ(got, want) == []
+
+
+@pytest.mark.gpu
+def test_des_graph_replayed_ticks_bitwise_eager(card):
+    """The run loop's CUDA-graph replay of ticks reaches the state eager
+    ticks reach, refinement rounds between the replays included."""
+    got = _des_run(card, None, 1100)
+    want = _des_run(card, None, 1100, graph_ticks=0)
+    assert int(got.refines) >= 4
+    assert _smoke().des_differ(got, want) == []
+
+
+@pytest.mark.gpu
+def test_des_fleet_kernel3_path_bitwise_twin_path(card):
+    """A fleet of three workloads refining through kernel 3 reaches, field
+    by field, the state it reaches through kernel 3's plain twin, and
+    never launches kernel 1."""
+    from repro_torch.core.batch import stack_pytrees
+    from repro_torch.des import engine, scenarios
+    from repro_torch.kernels.ops import make_aggregate_dissat_fn_plain
+    elements = [_des_instance(card, 1800, seed) for seed in (1, 2, 3)]
+    cfg = elements[0][0]
+    adjs = torch.stack([torch.as_tensor(e[1]) for e in elements])
+    states = stack_pytrees([e[2] for e in elements])
+    scheds = scenarios.stack_schedules([e[3] for e in elements])
+    D.reset_launches()
+    got = engine.run_simulation_batch(cfg, adjs, states, scheds)
+    launched = dict(D.launches)
+    want = engine.run_simulation_batch(
+        cfg, adjs, states, scheds,
+        dissat_fn=make_aggregate_dissat_fn_plain(batched=True))
+    assert int(got.refines.min()) >= 4
+    assert launched["dissat_from_aggregate_batched"] > 0
+    assert launched["dissat_from_aggregate"] == 0
+    assert _smoke().des_differ(got, want) == []
