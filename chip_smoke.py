@@ -6,8 +6,9 @@ million-node instance (N=10^6, E=9,002,624, K=8), the batched fleets
 dense LM serving path (qwen1.5-4b at full width, 48 requests through the
 continuous-batching engine), the SSM serving path (mamba2-1.3b at full
 width, the same traffic) and the paper's Time-Warp DES with periodic
-refinement (N=2048, K=16; a fleet of 8 at N=1024), times every kernel, and
-checks the results.
+refinement (N=2048, K=16; a fleet of 8 at N=1024) and the distributed
+refinement runtime with its faults (16 shards of the dense instance), times
+every kernel, and checks the results.
 
   python3 chip_smoke.py          # needs one CUDA card and nvcc
 
@@ -144,7 +145,29 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      kernel 1; then on a dense N=4096, K=16 problem: ``refine``,
      ``simulated_annealing`` (2048 steps), ``equalize_cardinality`` and
      ``count_discrepancies`` over 512 traced ct turns, each checked and
-     timed.
+     timed;
+ 22. distributed refinement and faults on phase 3's instance, 16 shards
+     of 1024 rows (one per machine): (a) ``refine_distributed`` to
+     equilibrium, bitwise phase 3's ``refine`` (assignment, loads, moves,
+     turns), kernel 3 once per loop turn and kernel 1 never, the measured
+     wire reconciled with the ledger, a profiled window beside the
+     controller's; (b) 512 traced turns, every trace field but the
+     potentials bitwise ``refine_traced`` (the potentials within 1e-5:
+     the initial ones are sums of 16 shard partials), the wire reconciled;
+     the same turns on kernel 3 bitwise ``refine``'s; (c) 64 sweeps,
+     assignment and counts bitwise ``refine_simultaneous`` (loads and
+     potentials within 1e-5), on kernel 3 bitwise ``refine_sweeps`` on
+     kernel 1; (d) 200 recompute turns on kernel 2 over the (16384,
+     16384) row blocks against the controller's recompute turns on kernel
+     2; (e) ``tests/test_faults.py``'s mixed fault plan (seed 0) recovers
+     within the repair budget, the zero-fault plan is (a) bitwise (its
+     loads after the reference's final audit, which replaces carried
+     loads more than 1e-3 from the shards' fresh partials), a shard
+     down to the end raises ``DeadShardError``; (f)
+     ``refine_distributed_shard_map`` on a one-rank NCCL group, kernel 1
+     each turn, bitwise (a); (g) phase 20's DES with
+     ``refine_backend="distributed"`` over its first 4 refinement rounds,
+     every ``DESState`` field bitwise phase 20's single-backend rounds.
 
 Each path's launch counts are set to 0 just before it and read just after.
 The line before the last two is the kernels' JSON record; then the card's
@@ -291,6 +314,16 @@ DES_FLEET_THREADS = 24
 DES_FLEET_REFINE_FREQ = 512
 DES_FLEET_TURNS = 512
 DES_FLEET_CHURN = (32, 256)
+# phase 22: the distributed slice on phase 3's instance, one shard per
+# machine (the reference's default); the fault plan is
+# tests/test_faults.py::_mixed_plan's, scaled to S and K
+DIST_S = 16
+DIST_TRACED_TURNS = 512
+DIST_SWEEPS = 64
+DIST_PLAN_ROUNDS = 96
+DIST_PLAN = dict(p_down=0.03, down_length=(2, 4), p_omit=0.05, p_lost=0.2,
+                 p_dup=0.08, p_corrupt=0.04)
+DIST_PROFILE_TURNS = 256
 ANNEAL_N = 4096
 ANNEAL_K = 16
 ANNEAL_STEPS = 2048
@@ -609,8 +642,8 @@ def phase_main(D, ops, problem):
     for name in ("dissat_from_aggregate", "cost_matrix"):
         if launches[name] <= 0:
             fail(f"kernel {name} was not launched on the main path")
-    return {"r": r, "r0": r0, "launches": launches, "moves": moves,
-            "turns": turns,
+    return {"r": r, "r0": r0, "loads": res.loads, "launches": launches,
+            "moves": moves, "turns": turns,
             "wall_s": wall, "ms_per_turn": 1e3 * wall / max(turns, 1),
             "recompute_ms_per_turn": 1e3 * wall2 / max(turns2, 1),
             "equal_leading_turns": same, "init_s": t_init,
@@ -2532,7 +2565,8 @@ def phase_des(D, card):
     log(f"  one tick captured in a CUDA graph: {per_tick:.1f} kernel nodes, "
         f"{other:.1f} other nodes (the host launches one graph per "
         f"{engine._GRAPH_TICKS} ticks)")
-    out.update(busy=dev_s / pwall, launches_per_tick=per_tick)
+    out.update(busy=dev_s / pwall, launches_per_tick=per_tick,
+               instance=(cfg, adj, s0, churn), prefix=prefix)
     return out
 
 
@@ -2695,6 +2729,326 @@ def phase_core_rest(card):
     return {"anneal_ms_per_step": 1e3 * t_ann / ANNEAL_STEPS,
             "equalize_s": t_eq, "discrepancies": int(count)}
 
+# ---------------------------------------------------------------------------
+# phase 22: distributed refinement and faults
+# ---------------------------------------------------------------------------
+
+def _differ(want, got, fields=("assignment", "loads", "num_moves",
+                               "num_turns", "converged")) -> list[str]:
+    """The result fields that are not bitwise equal (counts by value)."""
+    bad = []
+    for f in fields:
+        a, b = getattr(want, f), getattr(got, f)
+        if f in ("num_moves", "num_turns", "converged"):
+            same = int(a) == int(b)
+        else:
+            same = a.dtype == b.dtype and torch.equal(a, b)
+        if not same:
+            bad.append(f)
+    return bad
+
+
+def _rel(a, b) -> float:
+    """max |a - b| over max |b|."""
+    return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+
+
+def _loop_turns(turns: int) -> int:
+    """Turns a sequential loop runs for ``turns`` active ones: it reads the
+    convergence flag once every ``_SYNC_EVERY`` turns and masks the turns
+    in between, each of which still reduces."""
+    from repro_torch.core.refine import _SYNC_EVERY
+    return -(-turns // _SYNC_EVERY) * _SYNC_EVERY
+
+
+def views_load_partials(views, assignment, k):
+    """(S, K) every shard's fresh load partial, as the drivers' audit
+    reduces them."""
+    from repro_torch.distributed import protocol
+    r_local = assignment.index_select(0, views.ids.reshape(-1).long()
+                                      ).view(views.ids.shape)
+    return protocol.shard_load_partials(views.weights, views.valid, r_local,
+                                        k)
+
+
+def phase_distributed(D, ops, problem, main_run, des, card):
+    """The distributed slice on phase 3's instance with one shard per
+    machine: (a) the emulated driver to equilibrium, (b) traced turns,
+    (c) sweeps, (d) recompute turns on kernel 2, (e) faults, (f) the
+    collective driver on a one-rank NCCL group, (g) the DES's distributed
+    backend.  Each against its single-controller run."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch import distributed as PD
+    from repro_torch.core import costs
+    from repro_torch.core.refine import (refine, refine_simultaneous,
+                                         refine_sweeps, refine_traced)
+    from repro_torch.des import engine
+    from repro_torch.distributed import faults as PF
+    sync = torch.cuda.synchronize
+    r0, s = main_run["r0"], DIST_S
+    counts = {}
+
+    def counted(label, fn):
+        D.reset_launches()
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        counts[label] = dict(D.launches)
+        return out, time.perf_counter() - t0
+
+    def launched(label, want: dict):
+        got = {name: counts[label][name] for name in want}
+        log(f"  ({label}) launches: {counts[label]}")
+        if got != want:
+            fail(f"phase 22 ({label}): launches {got}, expected {want}")
+
+    stats = PD.boundary_stats(problem, s)
+
+    # (a) the emulated driver to equilibrium: bitwise phase 3's refine
+    (res, wire), wall = counted("a", lambda: PD.refine_distributed(
+        problem, r0, "c", num_shards=s, max_turns=400_000,
+        measure_wire=True))
+    turns = int(res.num_turns)
+    bad = [f for f, want in (("assignment", main_run["r"]),
+                             ("loads", main_run["loads"]))
+           if not torch.equal(getattr(res, f), want)]
+    if (int(res.num_moves), turns) != (main_run["moves"],
+                                       main_run["turns"]):
+        bad.append("counts")
+    ms_turn = 1e3 * wall / turns
+    check = PD.reconcile(PD.ledger_for_run(stats, K, wire.rounds), wire)
+    log(f"  (a) refine_distributed, S={s}: {int(res.num_moves)} moves in "
+        f"{turns} turns, converged={bool(res.converged)}, {wall:.3f} s, "
+        f"{ms_turn:.4f} ms per turn (phase 3's refine: "
+        f"{main_run['ms_per_turn']:.4f}) [{card}]; bitwise phase 3: "
+        f"{not bad}; {wire.payload_bytes // max(wire.rounds, 1)} B a turn "
+        f"on the wire ({wire.payload_bytes} B in all, setup "
+        f"{wire.setup_bytes} B); {check.summary()}")
+    if bad or not bool(res.converged):
+        fail(f"phase 22 (a): refine_distributed differs from phase 3's "
+             f"refine in {bad}")
+    if not check.ok:
+        fail("phase 22 (a): measured wire bytes differ from the ledger")
+    launched("a", {"dissat_from_aggregate_batched": _loop_turns(turns),
+                   "dissat_from_aggregate": 0, "cost_matrix": 0})
+    _, pwall, dev_s, dev_launches, _ = busy_share(
+        lambda: PD.refine_distributed(problem, r0, "c", num_shards=s,
+                                      max_turns=DIST_PROFILE_TURNS))
+    _, cwall, cdev_s, cdev_launches, _ = busy_share(
+        lambda: refine(problem, r0, "c", max_turns=DIST_PROFILE_TURNS))
+    n = DIST_PROFILE_TURNS
+    log(f"  profiled {n} turns: distributed wall {1e3 * pwall / n:.4f} "
+        f"ms/turn, device {1e3 * dev_s / n:.4f} ms/turn, busy "
+        f"{dev_s / pwall:.4f}, {dev_launches / n:.1f} kernels a turn "
+        f"recorded; controller wall {1e3 * cwall / n:.4f} ms/turn, device "
+        f"{1e3 * cdev_s / n:.4f}, busy {cdev_s / cwall:.4f}, "
+        f"{cdev_launches / n:.1f} kernels a turn [{card}]")
+    out = {"ms_per_turn": ms_turn, "busy": dev_s / pwall,
+           "controller_busy": cdev_s / cwall,
+           "bytes_per_turn": wire.payload_bytes // max(wire.rounds, 1)}
+
+    # (b) traced turns: the assembled reduction bitwise refine_traced, and
+    # kernel 3 (cost_fn="pallas") bitwise refine over the same turns
+    (res_t, tr, wire_t), wall_t = counted(
+        "b", lambda: PD.refine_distributed_traced(
+            problem, r0, "c", num_shards=s, max_turns=DIST_TRACED_TURNS,
+            measure_wire=True))
+    want_t, wtr = refine_traced(problem, r0, "c", max_turns=DIST_TRACED_TURNS)
+    bad = _differ(want_t, res_t) + [
+        f for f in wtr._fields if f not in ("c0", "ct0")
+        and not torch.equal(getattr(wtr, f), getattr(tr, f))]
+    check = PD.reconcile(PD.ledger_for_run(stats, K, wire_t.rounds,
+                                           traced=True), wire_t)
+    rel_c0, rel_ct0 = _rel(tr.c0, wtr.c0), _rel(tr.ct0, wtr.ct0)
+    log(f"  (b) {DIST_TRACED_TURNS} traced turns, {int(res_t.num_moves)} "
+        f"moves, {1e3 * wall_t / DIST_TRACED_TURNS:.4f} ms per turn: every "
+        f"trace field but the potentials and the result bitwise "
+        f"refine_traced: {not bad}; C_0 / Ct_0 traces within {rel_c0:.3e} "
+        f"/ {rel_ct0:.3e} of it (initial potentials summed from {s} shard "
+        f"partials); {check.summary()}")
+    if bad or not check.ok or max(rel_c0, rel_ct0) > 1e-5:
+        fail(f"phase 22 (b): traced run differs from refine_traced in "
+             f"{bad}, wire ok {check.ok}")
+    launched("b", {"dissat_from_aggregate_batched": 0,
+                   "dissat_from_aggregate": 0, "cost_matrix": 0})
+    (res_p, _), _ = counted("b3", lambda: PD.refine_distributed_traced(
+        problem, r0, "c", num_shards=s, max_turns=DIST_TRACED_TURNS,
+        cost_fn="pallas"))
+    bad = _differ(refine(problem, r0, "c", max_turns=DIST_TRACED_TURNS),
+                  res_p)
+    log(f"  (b) the same turns reduced by kernel 3: bitwise refine's first "
+        f"{DIST_TRACED_TURNS} turns: {not bad}")
+    if bad:
+        fail(f"phase 22 (b): kernel-3 traced run differs from refine in "
+             f"{bad}")
+    launched("b3", {"dissat_from_aggregate_batched": DIST_TRACED_TURNS,
+                    "dissat_from_aggregate": 0})
+
+    # (c) sweeps: the assembled reduction against refine_simultaneous,
+    # kernel 3 against refine_sweeps on kernel 1
+    (res_s, outs_s, wire_s), wall_s = counted(
+        "c", lambda: PD.refine_distributed_simultaneous(
+            problem, r0, "c", num_shards=s, max_sweeps=DIST_SWEEPS,
+            measure_wire=True))
+    want_s, wouts = refine_simultaneous(problem, r0, "c",
+                                        max_sweeps=DIST_SWEEPS)
+    bad = _differ(want_s, res_s, ("assignment", "num_moves", "num_turns",
+                                  "converged"))
+    if not torch.equal(outs_s[2], wouts[2]):
+        bad.append("active")
+    loads_bitwise = torch.equal(res_s.loads, want_s.loads)
+    rel = max(_rel(res_s.loads, want_s.loads), _rel(outs_s[0], wouts[0]),
+              _rel(outs_s[1], wouts[1]))
+    check = PD.reconcile(PD.ledger_for_run(stats, K, wire_s.rounds,
+                                           simultaneous=True), wire_s)
+    sweeps = int(res_s.num_turns)
+    log(f"  (c) {sweeps} sweeps, {int(res_s.num_moves)} moves, "
+        f"{1e3 * wall_s / max(sweeps, 1):.4f} ms per sweep: assignment, "
+        f"counts and active bitwise refine_simultaneous: {not bad}; loads "
+        f"bitwise: {loads_bitwise}, loads and potentials within {rel:.3e} "
+        f"(each sweep sums {s} shard partials); "
+        f"{wire_s.payload_bytes // max(wire_s.rounds, 1)} B a sweep; "
+        f"{check.summary()}")
+    if bad or not check.ok or rel > 1e-5:
+        fail(f"phase 22 (c): sweeps differ from refine_simultaneous in "
+             f"{bad}, wire ok {check.ok}")
+    launched("c", {"dissat_from_aggregate_batched": 0,
+                   "dissat_from_aggregate": 0})
+    (res_c3, _), _ = counted("c3", lambda: PD.refine_distributed_simultaneous(
+        problem, r0, "c", num_shards=s, max_sweeps=DIST_SWEEPS,
+        cost_fn="pallas"))
+    want_c3, _ = refine_sweeps(problem, r0, "c", max_sweeps=DIST_SWEEPS,
+                               dissat_fn=ops.make_aggregate_dissat_fn())
+    bad = _differ(want_c3, res_c3, ("assignment", "num_moves", "num_turns",
+                                    "converged"))
+    ran = int(res_c3.num_turns) + int(bool(res_c3.converged))
+    log(f"  (c) the same sweeps reduced by kernel 3: assignment and counts "
+        f"bitwise refine_sweeps on kernel 1: {not bad}")
+    if bad:
+        fail(f"phase 22 (c): kernel-3 sweeps differ in {bad}")
+    launched("c3", {"dissat_from_aggregate_batched": ran,
+                    "dissat_from_aggregate": 0})
+
+    # (d) recompute turns on kernel 2 over the (S*Ns, N) row blocks
+    res_d, wall_d = counted("d", lambda: PD.refine_distributed(
+        problem, r0, "c", num_shards=s, max_turns=RECOMPUTE_TURNS,
+        incremental=False, cost_fn="pallas"))
+    want_d = refine(problem, r0, "c", max_turns=RECOMPUTE_TURNS,
+                    cost_matrix_fn=ops.make_core_cost_matrix_fn())
+    bad = _differ(want_d, res_d)
+    c0_rel = abs(float(costs.global_cost_c0(problem, res_d.assignment))
+                 / float(costs.global_cost_c0(problem, want_d.assignment))
+                 - 1.0)
+    log(f"  (d) {RECOMPUTE_TURNS} recompute turns on kernel 2, "
+        f"{int(res_d.num_moves)} moves, {1e3 * wall_d / RECOMPUTE_TURNS:.4f}"
+        f" ms per turn: bitwise the controller's recompute turns on kernel "
+        f"2: {not bad}; C_0 within {c0_rel:.3e}")
+    if bad and c0_rel > 1e-3:
+        fail(f"phase 22 (d): recompute run differs in {bad}, C_0 by "
+             f"{c0_rel:.3e}")
+    launched("d", {"cost_matrix": RECOMPUTE_TURNS,
+                   "dissat_from_aggregate_batched": 0})
+
+    # (e) faults: a mixed plan recovers, the zero plan is the fault-free
+    # run, a shard that never comes back raises
+    plan = PF.make_fault_plan(DIST_PLAN_ROUNDS, s, 0, num_machines=K,
+                              num_nodes=N, **DIST_PLAN)
+    (res_e, rep), wall_e = counted("e", lambda: PD.refine_distributed(
+        problem, r0, "c", num_shards=s, max_turns=400_000, fault_plan=plan))
+    turns_e = int(res_e.num_turns)
+    log(f"  (e) mixed fault plan (seed 0): {int(res_e.num_moves)} moves in "
+        f"{turns_e} turns, converged={bool(res_e.converged)}, {wall_e:.3f} "
+        f"s; recovered={rep.recovered} with drift {rep.recovery_drift:.3e} "
+        f"(budget {PF.DEFAULT_DEGRADED.repair_tol}), {rep.repairs} repairs,"
+        f" {rep.repaired_cols} columns, {rep.retries} retries, {rep.dups} "
+        f"duplicates, {rep.down_rounds} rounds with a shard down, "
+        f"recovery at round {rep.recovery_round}")
+    if not (rep.recovered and bool(res_e.converged)
+            and rep.recovery_drift <= PF.DEFAULT_DEGRADED.repair_tol):
+        fail("phase 22 (e): the mixed fault plan did not recover")
+    launched("e", {"dissat_from_aggregate_batched": _loop_turns(turns_e),
+                   "dissat_from_aggregate": 0})
+    (res_z, rep_z), _ = counted("e0", lambda: PD.refine_distributed(
+        problem, r0, "c", num_shards=s, max_turns=400_000,
+        fault_plan=PF.zero_fault_plan(DIST_PLAN_ROUNDS, s)))
+    # the faulty drivers end with the reference's audit: a load entry
+    # whose carried value is further than repair_tol (absolute) from the
+    # sum of the shards' fresh partials is replaced by that sum, and f32
+    # loads of ~5e3 carried over 10^4 moves drift further than that, so
+    # the zero-fault run is (a) passed through the same audit
+    views = PD.build_views(problem, s)
+    fresh = torch.sum(views_load_partials(views, res.assignment, K), dim=0)
+    audited = torch.where(
+        ~((res.loads - fresh).abs() <= PF.DEFAULT_DEGRADED.repair_tol),
+        fresh, res.loads)
+    bad = _differ(res, res_z, ("assignment", "num_moves", "num_turns",
+                               "converged"))
+    if not torch.equal(res_z.loads, audited):
+        bad.append("loads")
+    patched = int((res_z.loads != res.loads).sum())
+    log(f"  (e) zero-fault plan: assignment, moves, turns bitwise (a), "
+        f"loads bitwise (a)'s after the final audit: {not bad}; the audit "
+        f"replaced {patched} of {K} carried loads (carried drift "
+        f"{rep_z.pre_repair_drift:.3e} against the {s} shards' fresh "
+        f"partials); repairs {rep_z.repairs}")
+    if bad:
+        fail(f"phase 22 (e): the zero-fault plan differs from (a) in {bad}")
+    z = np.zeros((DIST_PLAN_ROUNDS, s), bool)
+    down = z.copy()
+    down[:, 3] = True
+    dead = PF._assemble(down, z, np.zeros(z.shape, np.int32), z, z,
+                        np.zeros(z.shape, np.int32),
+                        np.zeros(z.shape, np.float32), PF.DEFAULT_DEGRADED,
+                        N)
+    try:
+        PD.refine_distributed(problem, r0, "c", num_shards=s, max_turns=48,
+                              fault_plan=dead)
+        fail("phase 22 (e): a shard down to the end did not raise")
+    except PF.DeadShardError as err:
+        log(f"  (e) shard 3 down every round: DeadShardError "
+            f"({str(err)[:60]}...)")
+
+    # (f) the collective driver on a one-rank NCCL group
+    res_f, wall_f = counted("f", lambda: PD.refine_distributed_shard_map(
+        problem, r0, "c", num_shards=1, max_turns=400_000))
+    bad = _differ(res, res_f)
+    log(f"  (f) refine_distributed_shard_map on a one-rank NCCL group: "
+        f"{int(res_f.num_turns)} turns, {1e3 * wall_f / turns:.4f} ms per "
+        f"turn; bitwise (a): {not bad}; group destroyed: "
+        f"{not dist.is_initialized()}")
+    if bad or dist.is_initialized():
+        fail(f"phase 22 (f): the collective run differs from (a) in {bad}")
+    launched("f", {"dissat_from_aggregate": _loop_turns(turns),
+                   "dissat_from_aggregate_batched": 0})
+
+    # (g) the DES with refine_backend="distributed" over phase 20's first
+    # refinement rounds, against phase 20's single-backend rounds
+    cfg, adj, s0, churn = des["instance"]
+    dcfg = dataclasses.replace(cfg, refine_backend="distributed",
+                               max_ticks=DES_PARITY_ROUNDS * cfg.refine_freq)
+    got, wall_g = counted("g", lambda: engine.run_simulation(dcfg, adj, s0,
+                                                             churn))
+    bad = des_differ(des["prefix"], got)
+    log(f"  (g) the DES over its first {int(got.refines)} refinement rounds "
+        f"({int(got.tick)} ticks, {wall_g:.3f} s) with "
+        f"refine_backend='distributed': every DESState field bitwise the "
+        f"single backend's: {not bad}")
+    if bad or int(got.refines) < 1:
+        fail(f"phase 22 (g): the distributed DES differs in {bad}")
+    if counts["g"]["dissat_from_aggregate_batched"] <= 0 \
+            or counts["g"]["dissat_from_aggregate"] != 0:
+        fail(f"phase 22 (g): launches {counts['g']}")
+    log(f"  (g) launches: {counts['g']}")
+    out["launches"] = {
+        name: {label: c[name] for label, c in counts.items() if c[name]}
+        for name in ("dissat_from_aggregate", "cost_matrix",
+                     "dissat_from_aggregate_batched")}
+    return out
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2749,7 +3103,6 @@ def main() -> int:
     for rec, err in zip(kernels, (err1, err2)):
         rec["launches"] = main_run["launches"][rec["name"]]
         rec["max_abs_err"] = err
-    del problem
     torch.cuda.empty_cache()
 
     log(f"== phase 6: sparse set-up, N={SPARSE_N}, K={SPARSE_K}, mu={MU} "
@@ -2847,6 +3200,16 @@ def main() -> int:
         f" (phase 20), kernel 3 "
         f"{des_fleet['launches']['dissat_from_aggregate_batched']} "
         f"(phase 21)")
+    log(f"== phase 22: distributed refinement and faults on phase 3's "
+        f"instance (S={DIST_S} shards of {N // DIST_S}; kernel 3 per "
+        f"emulated turn, kernel 2 per recompute turn, kernel 1 per rank "
+        f"turn)")
+    t0 = time.perf_counter()
+    dist_run = phase_distributed(D, ops, problem, main_run, des, card)
+    log(f"  phase 22: {time.perf_counter() - t0:.1f} s")
+    for rec in kernels:
+        if rec["name"] in dist_run["launches"]:
+            rec["distributed_launches"] = dist_run["launches"][rec["name"]]
     log(f"  total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -50,7 +50,8 @@ the reference, whose memory dominates at size), and the insertion scatter
 sends every rejected proposal to one dummy slot with one fill value.
 Refinement rounds call :func:`repro_torch.core.refine.refine` (kernel 1 on
 the card) for a lone run and :func:`repro_torch.core.batch.refine_batched`
-(kernel 3) for a fleet.
+(kernel 3) for a fleet; with ``refine_backend="distributed"``, each
+element's round calls :func:`repro_torch.distributed.refine_distributed`.
 """
 from __future__ import annotations
 
@@ -65,6 +66,7 @@ from ..core.batch import (_map, refine_batched, stack_pytrees,
                           unstack_pytree)
 from ..core.problem import PartitionProblem, resolve_device
 from ..core.refine import refine
+from ..distributed.runtime import refine_distributed
 from .scenarios import SpeedSchedule, speeds_at
 
 NORMAL = 0
@@ -678,13 +680,16 @@ def _refine_problem(cfg: DESConfig, nbr: torch.Tensor, s: DESState,
     return problem, theta
 
 
-def _check_backend(cfg: DESConfig) -> None:
+def _check_backend(cfg: DESConfig, dissat_fn=None) -> None:
     if cfg.refine_freq <= 0 or cfg.refine_backend == "single":
         return
     if cfg.refine_backend == "distributed":
-        raise NotImplementedError(
-            "refine_backend='distributed' is not ported yet; it comes with "
-            "the distributed-refinement slice of the port")
+        if dissat_fn is not None:
+            raise ValueError(
+                "dissat_fn is the single backend's seam; "
+                "refine_backend='distributed' reduces through "
+                "refine_distributed's own shard reduction")
+        return
     raise ValueError(f"unknown refine_backend {cfg.refine_backend!r}")
 
 
@@ -705,8 +710,28 @@ def _refine_partition(cfg: DESConfig, nbr: torch.Tensor, s: DESState,
     ``batched=False`` (a lone run, B = 1) refines through ``refine``
     (kernel 1 on the card); ``batched=True`` through ``refine_batched``
     (kernel 3), each element bitwise its lone round.  ``dissat_fn`` is the
-    9-argument seam of the chosen entry point (``None``: its kernel)."""
+    9-argument seam of the chosen entry point (``None``: its kernel).
+
+    ``refine_backend="distributed"`` refines each element through
+    :func:`~repro_torch.distributed.runtime.refine_distributed` (one shard
+    per machine unless ``refine_num_shards`` says otherwise; kernel 3 over
+    the shard stack on the card), one element after another, so a fleet's
+    element is bitwise its lone run; like the reference's, the round takes
+    no ``verify_every``."""
     problem, theta = _refine_problem(cfg, nbr, s, speeds)
+    if cfg.refine_backend == "distributed":
+        rows = []
+        for b in range(s.machine.shape[0]):
+            res = refine_distributed(
+                unstack_pytree(problem, b), s.machine[b],
+                cfg.refine_framework,
+                num_shards=cfg.refine_num_shards or cfg.num_machines,
+                max_turns=cfg.refine_max_turns,
+                incremental=cfg.refine_incremental,
+                theta=None if theta is None else theta[b])
+            rows.append(res.assignment)
+        assignment = torch.stack(rows)
+        return _apply_migrations(cfg, s, assignment)
     kwargs = dict(max_turns=cfg.refine_max_turns,
                   incremental=cfg.refine_incremental,
                   verify_every=cfg.refine_verify_every,
@@ -720,6 +745,13 @@ def _refine_partition(cfg: DESConfig, nbr: torch.Tensor, s: DESState,
         res = refine(one, s.machine[0], cfg.refine_framework,
                      theta=None if theta is None else theta[0], **kwargs)
         assignment = res.assignment[None]
+    return _apply_migrations(cfg, s, assignment)
+
+
+def _apply_migrations(cfg: DESConfig, s: DESState,
+                      assignment: torch.Tensor) -> DESState:
+    """The stack after a refinement round chose ``assignment``: the
+    machines, the round and move counts, and the transfer freezes."""
     moved = assignment != s.machine
     i32 = torch.int32
     new = s._replace(machine=assignment, refines=s.refines + 1,
@@ -909,7 +941,7 @@ def des_tick(cfg: DESConfig, adj, state: DESState,
     refinement round (``None``: kernel 1 on the card).
     """
     _no_telemetry(emit_tick, emit_refine)
-    _check_backend(cfg)
+    _check_backend(cfg, dissat_fn)
     nbr, sched = _device_inputs(adj, state, speed_schedule, lone=True)
     s = stack_pytrees([state])
     speeds = _speeds_fn(cfg, s, sched)(s.tick)
@@ -944,7 +976,7 @@ def _run_lone(cfg: DESConfig, adj, state: DESState,
     """:func:`run_simulation` with the length of the card's CUDA graphs of
     ticks chosen: ``graph_ticks=0`` runs every tick eagerly, the reference
     that checks of the replayed ticks compare against."""
-    _check_backend(cfg)
+    _check_backend(cfg, dissat_fn)
     nbr, sched = _device_inputs(adj, state, speed_schedule, lone=True)
     out = _run(cfg, nbr, stack_pytrees([state]), sched,
                DEFAULT_BATCH_CHUNK, batched=False, dissat_fn=dissat_fn,
@@ -981,7 +1013,7 @@ def run_simulation_batch(cfg: DESConfig, adjs, states: DESState,
     ported yet and raises.
     """
     _no_telemetry(recorder)
-    _check_backend(cfg)
+    _check_backend(cfg, dissat_fn)
     nbr, sched = _device_inputs(adjs, states, speed_schedules, lone=False)
     return _run(cfg, nbr, states, sched, chunk, batched=True,
                 dissat_fn=dissat_fn)

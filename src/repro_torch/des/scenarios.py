@@ -158,15 +158,17 @@ def true_failure(num_machines: int, machine: int, fail_tick: int,
 def refine_exchange_loss(num_rounds: int, num_shards: int, seed: int = 0, *,
                          p_lost: float = 0.2, max_lost: int = 3,
                          num_machines: int = 1, num_nodes: int = 0):
-    """Refinement-layer exchange-loss scenario: a seeded fault plan of the
-    distributed drivers (candidate exchanges lost on the wire with
-    probability ``p_lost`` per (round, shard), DESIGN.md §15.2).  Not
-    ported yet: the fault plans come with the port's distributed
-    refinement (``repro_torch.distributed``)."""
-    raise NotImplementedError(
-        "refine_exchange_loss builds a distributed-refinement fault plan; "
-        "it comes with the distributed-refinement and faults slice of the "
-        "port (repro_torch.distributed)")
+    """Refinement-layer exchange-loss scenario: a seeded
+    :class:`repro_torch.distributed.faults.FaultPlan` where candidate
+    exchanges are lost on the wire with probability ``p_lost`` per
+    (round, shard) — each loss costs up to ``max_lost`` bounded retries
+    before the round proceeds on the stale aggregate (DESIGN.md §15.2).
+    Pass it as ``fault_plan=`` to any distributed driver; pair with
+    :func:`true_failure` to measure load CV through both fault classes."""
+    from ..distributed import faults
+    return faults.make_fault_plan(
+        num_rounds, num_shards, seed, p_lost=p_lost, max_lost=max_lost,
+        num_machines=num_machines, num_nodes=num_nodes)
 
 
 def pad_segments(schedule: SpeedSchedule, num_segments: int) -> SpeedSchedule:

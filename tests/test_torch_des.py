@@ -378,17 +378,15 @@ def test_schedule_errors():
         PS.stack_schedules([])
     with pytest.raises(ValueError):
         PS.random_churn(3, 0, 10, seed=0)
-    with pytest.raises(NotImplementedError, match="distributed"):
-        PS.refine_exchange_loss(4, 2)
 
 
 def test_unported_options_raise():
     adj, spec, jcfg, pcfg = _setup(16, 2, 4, 0, refine_freq=20)
     _, ps = _states(jcfg, pcfg, spec, np.arange(16) % 2)
-    with pytest.raises(NotImplementedError, match="distributed"):
+    with pytest.raises(ValueError, match="single backend's seam"):
         P.run_simulation(dataclasses.replace(pcfg,
                                              refine_backend="distributed"),
-                         adj, ps)
+                         adj, ps, dissat_fn=lambda *a: None)
     with pytest.raises(ValueError, match="refine_backend"):
         P.run_simulation(dataclasses.replace(pcfg, refine_backend="x"),
                          adj, ps)

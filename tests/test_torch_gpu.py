@@ -927,3 +927,87 @@ def test_des_fleet_kernel3_path_bitwise_twin_path(card):
     assert launched["dissat_from_aggregate_batched"] > 0
     assert launched["dissat_from_aggregate"] == 0
     assert _smoke().des_differ(got, want) == []
+
+
+def _dist_problem(card, n=1000, k=8, seed=3):
+    from repro_torch.core.problem import make_problem
+    from repro_torch.graphs.generators import (random_degree_graph,
+                                               random_weights)
+    adj = random_degree_graph(n, seed=seed)
+    b, c = random_weights(adj, seed=seed + 1, mean=5.0)
+    speeds = np.random.default_rng(seed).uniform(0.5, 2.0, k)
+    prob = make_problem(c, b, speeds, mu=8.0, device=card)
+    r0 = torch.as_tensor(np.random.default_rng(seed + 2).integers(
+        0, k, n).astype(np.int32), device=card)
+    return prob, r0
+
+
+def _same_result(want, got):
+    assert torch.equal(want.assignment, got.assignment)
+    assert torch.equal(want.loads, got.loads)
+    assert int(want.num_moves) == int(got.num_moves)
+    assert int(want.num_turns) == int(got.num_turns)
+    assert bool(want.converged) == bool(got.converged)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("framework", ["c", "ct"])
+@pytest.mark.parametrize("num_shards", [1, 3, 8])
+def test_distributed_kernel3_bitwise_refine(card, framework, num_shards):
+    """The emulated driver reduces every turn's (S, Ns, K) stack with one
+    kernel-3 launch and lands on ``refine`` (kernel 1) bitwise; with
+    theta too (1000 rows: S = 3 pads the last block)."""
+    from repro_torch import distributed as PD
+    from repro_torch.core.refine import refine
+    prob, r0 = _dist_problem(card)
+    for theta in (None, 0.5):
+        want = refine(prob, r0, framework, theta=theta)
+        D.reset_launches()
+        got = PD.refine_distributed(prob, r0, framework,
+                                    num_shards=num_shards, theta=theta)
+        torch.cuda.synchronize()
+        assert D.launches["dissat_from_aggregate"] == 0
+        assert D.launches["dissat_from_aggregate_batched"] >= int(
+            got.num_turns)
+        assert bool(got.converged)
+        _same_result(want, got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("framework", ["c", "ct"])
+def test_distributed_recompute_kernel2_bitwise(card, framework):
+    """Recompute turns on kernel 2 over the (S*Ns, N) row blocks: bitwise
+    the controller's recompute turns on kernel 2 over the whole matrix,
+    one launch a turn."""
+    from repro_torch import distributed as PD
+    from repro_torch.core.refine import refine
+    from repro_torch.kernels import ops
+    prob, r0 = _dist_problem(card)
+    want = refine(prob, r0, framework, max_turns=120,
+                  cost_matrix_fn=ops.make_core_cost_matrix_fn())
+    D.reset_launches()
+    got = PD.refine_distributed(prob, r0, framework, num_shards=3,
+                                max_turns=120, incremental=False,
+                                cost_fn="pallas")
+    torch.cuda.synchronize()
+    assert D.launches["cost_matrix"] == 120
+    _same_result(want, got)
+
+
+@pytest.mark.gpu
+def test_distributed_collective_nccl_group_of_one(card):
+    """The collective driver on a one-rank NCCL group it makes and
+    destroys itself: kernel 1 each turn, bitwise the emulated driver."""
+    import torch.distributed as dist
+    from repro_torch import distributed as PD
+    prob, r0 = _dist_problem(card)
+    want = PD.refine_distributed(prob, r0, "c", num_shards=8)
+    D.reset_launches()
+    got, wire = PD.refine_distributed_shard_map(prob, r0, "c", num_shards=1,
+                                                measure_wire=True)
+    torch.cuda.synchronize()
+    assert not dist.is_initialized()
+    assert D.launches["dissat_from_aggregate"] >= int(got.num_turns)
+    assert D.launches["dissat_from_aggregate_batched"] == 0
+    _same_result(want, got)
+    assert wire.payload_bytes == 16 * int(got.num_turns)

@@ -40,8 +40,8 @@ def test_port_imports_no_jax_and_no_reference():
 
 def test_every_port_module_is_listed():
     """The probe above walks the package; make sure the walk sees the
-    kernel, core, model, serving, launch, partitioner and DES modules the
-    slices ship."""
+    kernel, core, model, serving, launch, partitioner, DES and distributed
+    modules the slices ship."""
     names = {m.name for m in pkgutil.walk_packages(
         [str(REPO / "src" / "repro_torch")], "repro_torch.")}
     for mod in ("core.problem", "core.costs", "core.aggregate",
@@ -64,7 +64,9 @@ def test_every_port_module_is_listed():
                 "launch.serve", "core.annealing", "core.constrained",
                 "partitioners", "partitioners.baselines", "des",
                 "des.engine", "des.scenarios", "des.workload",
-                "des_partitioning"):
+                "des_partitioning", "distributed", "distributed.views",
+                "distributed.protocol", "distributed.accounting",
+                "distributed.faults", "distributed.runtime"):
         assert f"repro_torch.{mod}" in names
 
 
@@ -83,3 +85,20 @@ def test_build_signatures_cover_every_entry_point():
             assert re.search(rf"\b{name}\(", text), (stem, name)
         for name in re.findall(r'extern "C" [\w ]+?\b(\w+)\(', text):
             assert name in _build.SIGNATURES[stem], (stem, name)
+
+
+def test_distributed_exports_the_reference_names():
+    """``repro_torch.distributed`` exports the reference's public names."""
+    import ast
+    tree = ast.parse((REPO / "src" / "repro" / "distributed"
+                      / "__init__.py").read_text())
+    want = next(node.value for node in tree.body
+                if isinstance(node, ast.Assign)
+                and node.targets[0].id == "__all__")
+    want = [elt.value for elt in want.elts]
+    sys.path.insert(0, str(REPO / "src"))
+    import repro_torch.distributed as port
+    assert len(want) == 21
+    assert sorted(port.__all__) == sorted(want)
+    for name in want:
+        assert hasattr(port, name), name
