@@ -6,9 +6,9 @@ million-node instance (N=10^6, E=9,002,624, K=8), the batched fleets
 dense LM serving path (qwen1.5-4b at full width, 48 requests through the
 continuous-batching engine), the SSM serving path (mamba2-1.3b at full
 width, the same traffic) and the paper's Time-Warp DES with periodic
-refinement (N=2048, K=16; a fleet of 8 at N=1024) and the distributed
-refinement runtime with its faults (16 shards of the dense instance), times
-every kernel, and checks the results.
+refinement (N=2048, K=16; a fleet of 8 at N=1024), the distributed
+refinement runtime with its faults (16 shards of the dense instance) and
+run telemetry on those paths, times every kernel, and checks the results.
 
   python3 chip_smoke.py          # needs one CUDA card and nvcc
 
@@ -168,6 +168,22 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      each turn, bitwise (a); (g) phase 20's DES with
      ``refine_backend="distributed"`` over its first 4 refinement rounds,
      every ``DESState`` field bitwise phase 20's single-backend rounds.
+ 23. run telemetry (``repro_torch.obs``) on the instances above: (a) phase
+     3's game under a ``Recorder`` with a ``JsonlSink``, bitwise phase 3,
+     one ``turn`` event a turn, ``python -m repro_torch.obs.report
+     --check`` exit 0; then its first 1024 turns without, with, with and
+     without a recorder: ms per turn, and the host syncs (counted under
+     ``torch.cuda.set_sync_debug_mode("warn")``) — the only ones the
+     recorder adds being its two reads of the card, before and after the
+     loop;
+     (b) ``make_timed_dissat_fn`` around kernel 1 for 256 turns: 256
+     ``phase`` spans, bitwise the unwrapped run; (c) phase 20's first 4
+     refinement rounds under a recorder: every ``DESState`` field bitwise
+     phase 20's, tick rows on the stride, 4 ``des_refine`` events,
+     ``--check``, ms per tick with and without; (d) phase 22 (a) under a
+     recorder, bitwise, its ``wire`` event ok with measured bytes equal to
+     the ledger's; a fault-injected traced run (the mixed plan) bitwise
+     its recorder-free run, closing ``recovered=True``, ``--check``.
 
 Each path's launch counts are set to 0 just before it and read just after.
 The line before the last two is the kernels' JSON record; then the card's
@@ -324,6 +340,8 @@ DIST_PLAN_ROUNDS = 96
 DIST_PLAN = dict(p_down=0.03, down_length=(2, 4), p_omit=0.05, p_lost=0.2,
                  p_dup=0.08, p_corrupt=0.04)
 DIST_PROFILE_TURNS = 256
+TELEMETRY_WINDOW = 1024     # phase 23 (a): turns a timed window
+TIMED_TURNS = 256           # phase 23 (b): turns under the timed dissat_fn
 ANNEAL_N = 4096
 ANNEAL_K = 16
 ANNEAL_STEPS = 2048
@@ -2566,7 +2584,8 @@ def phase_des(D, card):
         f"{other:.1f} other nodes (the host launches one graph per "
         f"{engine._GRAPH_TICKS} ticks)")
     out.update(busy=dev_s / pwall, launches_per_tick=per_tick,
-               instance=(cfg, adj, s0, churn), prefix=prefix)
+               instance=(cfg, adj, s0, churn), prefix=prefix,
+               prefix_s=t_prefix)
     return out
 
 
@@ -2849,7 +2868,8 @@ def phase_distributed(D, ops, problem, main_run, des, card):
         f"{cdev_launches / n:.1f} kernels a turn [{card}]")
     out = {"ms_per_turn": ms_turn, "busy": dev_s / pwall,
            "controller_busy": cdev_s / cwall,
-           "bytes_per_turn": wire.payload_bytes // max(wire.rounds, 1)}
+           "bytes_per_turn": wire.payload_bytes // max(wire.rounds, 1),
+           "a": res, "a_s": wall}
 
     # (b) traced turns: the assembled reduction bitwise refine_traced, and
     # kernel 3 (cost_fn="pallas") bitwise refine over the same turns
@@ -3050,6 +3070,270 @@ def phase_distributed(D, ops, problem, main_run, des, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 23: run telemetry
+# ---------------------------------------------------------------------------
+
+def count_syncs(fn):
+    """``(fn(), wall s, host syncs, where)``: the syncs counted as the
+    warnings ``torch.cuda.set_sync_debug_mode("warn")`` raises, ``where``
+    a Counter of the ``file:line`` each was raised from; the wall from a
+    synced start to a synced end."""
+    import collections
+    import warnings
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            t0 = time.perf_counter()
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    syncs = [w for w in caught if "synchroniz" in str(w.message).lower()]
+    where = collections.Counter(f"{Path(w.filename).name}:{w.lineno}"
+                                for w in syncs)
+    return out, wall, len(syncs), where
+
+
+def _bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bitwise equal, NaN payloads included (a repaired fault's carried
+    potentials may be NaN until the repair)."""
+    if a.dtype == torch.float32 and b.dtype == torch.float32:
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return a.dtype == b.dtype and torch.equal(a, b)
+
+
+def report_check(path) -> tuple[int, str]:
+    """``python -m repro_torch.obs.report PATH --check``: (exit code, the
+    last lines of its output)."""
+    import os
+    env = dict(os.environ)
+    src = str(Path(__file__).resolve().parent / "src")
+    env["PYTHONPATH"] = src + os.pathsep + env.get("PYTHONPATH", "")
+    out = subprocess.run([sys.executable, "-m", "repro_torch.obs.report",
+                          str(path), "--check"], env=env,
+                         capture_output=True, text=True, timeout=300)
+    text = (out.stdout + out.stderr).strip().splitlines()
+    return out.returncode, " | ".join(text[-3:])
+
+
+def phase_telemetry(D, ops, problem, main_run, des, dist_run, card):
+    """Run telemetry at full width on earlier phases' instances: (a) phase
+    3's game with a JSONL recorder, (b) the timed ``dissat_fn``, (c) phase
+    20's first refinement rounds with a recorder, (d) phase 22's emulated
+    driver and a fault-injected traced run with recorders, (e) the device
+    launches the row writes add.  Each result bitwise its recorder-free
+    run; each log passes ``--check``."""
+    import dataclasses
+    import tempfile
+
+    from repro_torch import distributed as PD
+    from repro_torch.core import refine as R
+    from repro_torch.core.batch import stack_pytrees
+    from repro_torch.core.refine import refine
+    from repro_torch.des import engine
+    from repro_torch.distributed import faults as PF
+    from repro_torch.obs import JsonlSink, Recorder
+    from repro_torch.obs.report import check_run, replay_run
+    from repro_torch.obs.rows import TurnRows
+    sync = torch.cuda.synchronize
+    r0 = main_run["r0"]
+    tmp = Path(tempfile.mkdtemp(prefix="telemetry_"))
+    D.reset_launches()
+    out = {}
+
+    # (a) phase 3's game under a JSONL recorder; then windows of its first
+    # TELEMETRY_WINDOW turns without and with a recorder, in turns
+    log_a = tmp / "refine.jsonl"
+    rec = Recorder([JsonlSink(log_a)])
+    on, wall_full, syncs_full, _ = count_syncs(
+        lambda: refine(problem, r0, "c", max_turns=400_000, recorder=rec))
+    rec.close()
+    turns = int(on.num_turns)
+    bad = [f for f, want in (("assignment", main_run["r"]),
+                             ("loads", main_run["loads"]))
+           if not torch.equal(getattr(on, f), want)]
+    if (int(on.num_moves), turns) != (main_run["moves"], main_run["turns"]):
+        bad.append("counts")
+    n_turn = sum(e["kind"] == "turn" for e in rec.events)
+    code, tail = report_check(log_a)
+    log(f"  (a) refine with a JsonlSink recorder: {int(on.num_moves)} moves "
+        f"in {turns} turns, {1e3 * wall_full / turns:.4f} ms per turn, "
+        f"{syncs_full} host syncs; bitwise phase 3: {not bad}; {n_turn} "
+        f"turn events; log {log_a.stat().st_size} B; report --check exit "
+        f"{code} ({tail})")
+    if bad:
+        fail(f"phase 23 (a): the recorded run differs from phase 3 in {bad}")
+    if n_turn != turns or code != 0:
+        fail(f"phase 23 (a): {n_turn} turn events for {turns} turns, "
+             f"report --check exit {code}")
+    w = TELEMETRY_WINDOW
+    runs = {False: [], True: []}
+    for recorded in (False, True, True, False):
+        got, wall, syncs, where = count_syncs(
+            lambda: refine(problem, r0, "c", max_turns=w,
+                           recorder=Recorder() if recorded else None))
+        runs[recorded].append((got, wall, syncs, where))
+    ms_off = [1e3 * r[1] / w for r in runs[False]]
+    ms_on = [1e3 * r[1] / w for r in runs[True]]
+    syncs_off, syncs_on = runs[False][1][2], runs[True][0][2]
+    extra = runs[True][0][3] - runs[False][1][3]
+    missing = runs[False][1][3] - runs[True][0][3]
+    bad = [f for r in runs[True] + runs[False][1:]
+           for f in _differ(runs[False][0][0], r[0])]
+    log(f"  (a) {w} turns in turns off/on/on/off: {ms_off[0]:.4f} / "
+        f"{ms_on[0]:.4f} / {ms_on[1]:.4f} / {ms_off[1]:.4f} ms per turn "
+        f"[{card}]; host syncs {syncs_on} with the recorder (the first "
+        f"with), {syncs_off} without (the last without; with only: "
+        f"{dict(extra)}, without only: "
+        f"{dict(missing)}); all four bitwise: {not bad}")
+    # the recorder reads the card twice a run (obs/rows.py's read_back):
+    # the replay seed before the first turn, the rows and the result
+    # after the last; no other sync
+    if bad or sum(extra.values()) > 2 or any(
+            not where.startswith("rows.py:") for where in extra):
+        fail(f"phase 23 (a): windows differ in {bad}; syncs only with the "
+             f"recorder {dict(extra)}, only without {dict(missing)}")
+    out.update(ms_on=float(np.mean(ms_on)), ms_off=float(np.mean(ms_off)),
+               syncs=(syncs_on, syncs_off))
+
+    # (b) kernel 1 under make_timed_dissat_fn for TIMED_TURNS turns
+    rec_b = Recorder()
+    timed = ops.make_timed_dissat_fn(ops.make_aggregate_dissat_fn(), rec_b,
+                                     name="kernels.dissat")
+    plain = refine(problem, r0, "c", max_turns=TIMED_TURNS)
+    sync()
+    t0 = time.perf_counter()
+    got = refine(problem, r0, "c", max_turns=TIMED_TURNS, dissat_fn=timed)
+    sync()
+    wall_b = time.perf_counter() - t0
+    spans = [e["dur"] for e in rec_b.events if e["kind"] == "phase"]
+    bad = _differ(plain, got)
+    log(f"  (b) make_timed_dissat_fn around kernel 1: {len(spans)} phase "
+        f"spans over {TIMED_TURNS} turns, {1e3 * np.mean(spans):.4f} ms a "
+        f"span (median {1e3 * np.median(spans):.4f}), {1e3 * wall_b / TIMED_TURNS:.4f}"
+        f" ms a turn; bitwise the unwrapped run: {not bad}")
+    if bad or len(spans) != TIMED_TURNS:
+        fail(f"phase 23 (b): {len(spans)} spans, differs in {bad}")
+
+    # (c) phase 20's first refinement rounds under a recorder
+    cfg, adj, s0, churn = des["instance"]
+    prefix_cfg = dataclasses.replace(
+        cfg, max_ticks=DES_PARITY_ROUNDS * cfg.refine_freq)
+    log_c = tmp / "des.jsonl"
+    rec_c = Recorder([JsonlSink(log_c)])
+    got_c, wall_c, syncs_c, _ = count_syncs(
+        lambda: engine.run_simulation(prefix_cfg, adj, s0, churn,
+                                      recorder=rec_c))
+    rec_c.close()
+    differ = des_differ(des["prefix"], got_c)
+    ticks = [e for e in rec_c.events if e["kind"] == "tick"]
+    rounds = [e for e in rec_c.events if e["kind"] == "des_refine"]
+    n_ticks = int(got_c.tick)
+    code_c, tail_c = report_check(log_c)
+    log(f"  (c) the DES's first {len(rounds)} refinement rounds "
+        f"({n_ticks} ticks) with a recorder: every DESState field bitwise "
+        f"phase 20's: {not differ}; {len(ticks)} tick events, every one on "
+        f"the stride {cfg.trace_stride}: "
+        f"{all(e['t'] % cfg.trace_stride == 0 for e in ticks)}; "
+        f"{1e3 * wall_c / n_ticks:.4f} ms per tick with the recorder, "
+        f"{1e3 * des['prefix_s'] / n_ticks:.4f} without (phase 20) "
+        f"[{card}]; host syncs {syncs_c}; report --check exit {code_c} "
+        f"({tail_c})")
+    if differ or len(rounds) != DES_PARITY_ROUNDS or code_c != 0:
+        fail(f"phase 23 (c): differs in {differ}, {len(rounds)} rounds, "
+             f"report --check exit {code_c}")
+    if len(ticks) != n_ticks // cfg.trace_stride or not all(
+            e["t"] % cfg.trace_stride == 0 for e in ticks):
+        fail(f"phase 23 (c): {len(ticks)} tick events over {n_ticks} ticks")
+    out.update(des_ms_on=1e3 * wall_c / n_ticks,
+               des_ms_off=1e3 * des["prefix_s"] / n_ticks)
+
+    # (d) phase 22 (a) and a fault-injected traced run under recorders
+    rec_d = Recorder()
+    sync()
+    t0 = time.perf_counter()
+    got_d = PD.refine_distributed(problem, r0, "c", num_shards=DIST_S,
+                                  max_turns=400_000, recorder=rec_d)
+    sync()
+    wall_d = time.perf_counter() - t0
+    bad = _differ(dist_run["a"], got_d)
+    wire = [e for e in rec_d.events if e["kind"] == "wire"]
+    ok = len(wire) == 1 and wire[0]["ok"] and (
+        wire[0]["measured_payload"], wire[0]["measured_setup"]) == (
+        wire[0]["predicted_payload"], wire[0]["predicted_setup"])
+    problems = check_run(replay_run(rec_d.events))
+    log(f"  (d) refine_distributed, S={DIST_S}, with a recorder: bitwise "
+        f"phase 22 (a): {not bad}; {wall_d:.3f} s against (a)'s "
+        f"{dist_run['a_s']:.3f}; wire {wire[0] if wire else None}; "
+        f"check_run {problems or 'clean'}")
+    if bad or not ok or problems:
+        fail(f"phase 23 (d): differs in {bad}, wire ok {ok}, {problems}")
+    plan = PF.make_fault_plan(DIST_PLAN_ROUNDS, DIST_S, 0, num_machines=K,
+                              num_nodes=N, **DIST_PLAN)
+    base = PD.refine_distributed_traced(problem, r0, "c", num_shards=DIST_S,
+                                        max_turns=DIST_TRACED_TURNS,
+                                        fault_plan=plan)
+    log_f = tmp / "faults.jsonl"
+    rec_f = Recorder([JsonlSink(log_f)])
+    got_f = PD.refine_distributed_traced(problem, r0, "c", num_shards=DIST_S,
+                                         max_turns=DIST_TRACED_TURNS,
+                                         fault_plan=plan, recorder=rec_f)
+    rec_f.close()
+    bad = _differ(base[0], got_f[0]) + [
+        f for f in base[1]._fields
+        if not _bits_equal(getattr(base[1], f), getattr(got_f[1], f))]
+    if base[2] != got_f[2]:
+        bad.append("report")
+    end = rec_f.events[-1]
+    wire = [e for e in rec_f.events if e["kind"] == "wire"]
+    kinds = sorted({e["kind"] for e in rec_f.events})
+    code_f, tail_f = report_check(log_f)
+    log(f"  (d) fault-injected traced run ({DIST_TRACED_TURNS} turns, the "
+        f"mixed plan, seed 0) with a recorder: bitwise the recorder-free "
+        f"run: {not bad}; recovered={end.get('recovered')}; wire ok "
+        f"{bool(wire) and wire[0]['ok']}; {len(rec_f.events)} events of "
+        f"kinds {kinds}; report --check exit {code_f} ({tail_f})")
+    if bad or end.get("recovered") is not True or not wire \
+            or not wire[0]["ok"] or code_f != 0:
+        fail(f"phase 23 (d): the faulty run differs in {bad}, recovered "
+             f"{end.get('recovered')}, report --check exit {code_f}")
+    out["launches"] = dict(D.launches)
+    log(f"  launches over phase 23: {out['launches']}")
+    for name in ("dissat_from_aggregate", "dissat_from_aggregate_batched"):
+        if out["launches"][name] <= 0:
+            fail(f"phase 23: kernel {name} was not launched")
+
+    # (e) the device launches a recorder adds: kernel nodes of a CUDA
+    # graph capturing 32 turns of refine's loop, and one tick's step,
+    # without and with their row writes
+    def loop(rows):
+        return R._refine(problem, r0, "c", 32, R.DEFAULT_TOL, None, True, 0,
+                         0, None, None, rows=rows)
+
+    stack = stack_pytrees([s0])
+    nbr, sched = engine._device_inputs(adj, s0, churn, lone=True)
+    speeds_of = engine._speeds_fn(cfg, stack, sched)
+    tel = engine._Telemetry(cfg, cfg.refine_freq, sched, stack.tick,
+                            engine._TICK_ROWS)
+    plain = engine._Ticks(cfg, nbr, stack, speeds_of, 0)
+    rowed = engine._Ticks(cfg, nbr, stack, speeds_of, 0, tel)
+    nodes = {name: device_launches(fn, calls=1, reps=1)[0] for name, fn in (
+        ("turns", lambda: loop(None)), ("turns_rows", lambda: loop(
+            TurnRows())), ("tick", lambda: plain.step(stack)),
+        ("tick_rows", lambda: rowed.step(stack)))}
+    log(f"  (e) device launches (CUDA graph kernel nodes): 32 turns "
+        f"{nodes['turns']:.0f} without the row buffer, "
+        f"{nodes['turns_rows']:.0f} with it; a DES tick "
+        f"{nodes['tick']:.0f} without the row write, "
+        f"{nodes['tick_rows']:.0f} with it")
+    out["nodes"] = nodes
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke run needs one GPU")
@@ -3210,6 +3494,14 @@ def main() -> int:
     for rec in kernels:
         if rec["name"] in dist_run["launches"]:
             rec["distributed_launches"] = dist_run["launches"][rec["name"]]
+    log("== phase 23: run telemetry (repro_torch.obs) on phases 3, 20 and "
+        "22's instances: recorders, the timed dissat_fn, report --check")
+    t0 = time.perf_counter()
+    tel = phase_telemetry(D, ops, problem, main_run, des, dist_run, card)
+    log(f"  phase 23: {time.perf_counter() - t0:.1f} s")
+    for rec in kernels:
+        if tel["launches"].get(rec["name"]):
+            rec["telemetry_launches"] = tel["launches"][rec["name"]]
     log(f"  total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

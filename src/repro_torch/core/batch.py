@@ -279,9 +279,9 @@ def refine_batched(problems, assignments,
         if t and t % _SYNC_EVERY == 0 and not bool((idle < k).any()):
             break
         active = idle < k
-        carry, res = _turn_incremental(problems, carry, t % k, framework,
-                                       tol, total_b, dissat_fn, theta,
-                                       active)
+        carry, res, _ = _turn_incremental(problems, carry, t % k,
+                                          framework, tol, total_b,
+                                          dissat_fn, theta, active)
         idle = torch.where(res.moved, 0, idle + 1)
         turns = turns + active.to(torch.int32)
         moves = moves + res.moved.to(torch.int32)
@@ -325,9 +325,9 @@ def refine_traced_batched(problems, assignments,
     rows = []
     for t in range(max_turns):
         active = idle < k
-        carry, res = _turn_incremental(problems, carry, t % k, framework,
-                                       tol, total_b, _assembled_dissat,
-                                       theta, active)
+        carry, res, _ = _turn_incremental(problems, carry, t % k,
+                                          framework, tol, total_b,
+                                          _assembled_dissat, theta, active)
         idle = torch.where(res.moved, 0, idle + 1)
         if verify_every and (t + 1) % verify_every == 0:
             carry, max_drift = _resync(elements, carry, max_drift,

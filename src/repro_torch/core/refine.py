@@ -65,16 +65,18 @@ machine has exactly zero dissatisfaction.
 """
 from __future__ import annotations
 
+import time
 from typing import NamedTuple, Protocol
 
 import numpy as np
 import torch
 
 from ..kernels import ops
+from ..obs.rows import TurnRows, decode, read_back
 from . import aggregate as agg_mod
 from . import checkpoint as ckpt_mod
 from . import costs
-from .problem import PartitionState, make_state
+from .problem import PartitionState, as_assignment, make_state
 
 # Dissatisfaction below this threshold counts as "satisfied" — guards float
 # round-off from keeping the loop alive on a plateau.
@@ -131,11 +133,39 @@ class Trace(NamedTuple):
     active: torch.Tensor   # (T,) bool  — False once converged
 
 
-def _no_recorder(recorder) -> None:
-    if recorder is not None:
-        raise NotImplementedError(
-            "recorder= (run telemetry) is not ported yet; it comes with "
-            "the telemetry slice of the port")
+def _open_run(recorder, runtime: str, problem, assignment, framework: str,
+              theta, **extra):
+    """Emit a ``run_start`` with the replay seed: the initial (K,) machine
+    loads (a host-side scatter in f64, O(N), as the reference sums them)
+    and the machine speeds, read from the device in one transfer.
+    Returns ``(run id, the node weights' host copy)``."""
+    b, r0, speeds = read_back(problem.node_weights,
+                              as_assignment(assignment, problem.device),
+                              problem.speeds)
+    k = problem.num_machines
+    loads0 = np.zeros(k)
+    np.add.at(loads0, r0, b)
+    run = recorder.new_run(
+        runtime, framework=framework, n=problem.num_nodes, k=k,
+        theta=theta is not None, loads=loads0, speeds=speeds, **extra)
+    return run, b
+
+
+def _raw_best_gain(dissat, assignment, machine: int, theta):
+    """Telemetry side quantity: the machine's best gain BEFORE the θ
+    hysteresis netting (DESIGN.md §14.1).  ``dissat`` is net of theta, so
+    the raw value is recovered as ``net + theta`` over the owned nodes.
+    Lets the recorder label a rejected turn "hysteresis" (the raw gain
+    cleared tol, the net one did not) or "satisfied".  Only evaluated on
+    telemetry paths."""
+    raw = dissat if theta is None else dissat + theta
+    return torch.max(torch.where(assignment == machine, raw, -float("inf")))
+
+
+def _host_result(result: RefineResult, *more: torch.Tensor):
+    """``result`` as host numpy arrays, and ``more``'s, in one transfer."""
+    vals = read_back(*result, *more)
+    return RefineResult(*vals[:len(result)]), vals[len(result):]
 
 
 def _resolve_theta(theta, problem) -> torch.Tensor | None:
@@ -177,7 +207,9 @@ def _result(do_move, node, machine: int, dest, gain, c0, ct0) -> TurnResult:
 
 def _turn(problem, state: PartitionState, machine: int, framework: str,
           tol: float, cost_matrix_fn=None, theta=None, active=True):
-    """One machine turn, recompute path: rebuild costs from scratch."""
+    """One machine turn, recompute path: rebuild costs from scratch.
+    Returns the new state, the turn's result and the turn's (N,)
+    dissatisfaction (for telemetry)."""
     if cost_matrix_fn is None:
         cost = costs.cost_matrix(problem, state, framework)
     else:
@@ -197,7 +229,7 @@ def _turn(problem, state: PartitionState, machine: int, framework: str,
     new_loads = state.loads + b_node * torch.where(do_move, delta, 0.0)
     zero = torch.zeros((), device=problem.device)
     res = _result(do_move, node, machine, dest, gain, zero, zero)
-    return PartitionState(new_assignment, new_loads), res
+    return PartitionState(new_assignment, new_loads), res, dissat
 
 
 def _turn_incremental(problem, agg: agg_mod.AggregateState, machine: int,
@@ -207,7 +239,8 @@ def _turn_incremental(problem, agg: agg_mod.AggregateState, machine: int,
     aggregate, O(N) rank-1 move (DESIGN.md §10).  A fleet's carry (a
     (B, N, K) aggregate, every field with a leading B axis, see
     :mod:`repro_torch.core.batch`) takes the same turn in every element
-    at once."""
+    at once.  Returns the new carry, the turn's result and the turn's
+    dissatisfaction (for telemetry)."""
     dissat, best = dissat_fn(agg.aggregate, agg.assignment,
                              problem.node_weights, agg.loads, problem.speeds,
                              problem.mu, framework, total_b, theta)
@@ -215,8 +248,9 @@ def _turn_incremental(problem, agg: agg_mod.AggregateState, machine: int,
     dest = best.gather(-1, node)
     new_agg = agg_mod.apply_move(problem, agg, node, machine, dest, do_move,
                                  total_b)
-    return new_agg, _result(do_move, node, machine, dest, gain, new_agg.c0,
-                            new_agg.ct0)
+    res = _result(do_move, node, machine, dest, gain, new_agg.c0,
+                  new_agg.ct0)
+    return new_agg, res, dissat
 
 
 def refine(problem, assignment, framework: str = costs.C_FRAMEWORK,
@@ -234,8 +268,61 @@ def refine(problem, assignment, framework: str = costs.C_FRAMEWORK,
     ``repair_every=M > 0`` heals it every M turns (rollback over a
     non-finite carry, then column repair; DESIGN.md §15.3).  ``theta`` is
     the per-node migration price (DESIGN.md §11).
+
+    ``recorder`` (a :class:`repro_torch.obs.Recorder`, DESIGN.md §14) opts
+    into telemetry: each turn appends its row to a buffer on the device
+    (no host read), the rows are read back once after the run — the
+    masked turns past convergence dropped — and emitted as ``turn``
+    events, and the run closes with drift + ``run_end`` events.  The
+    recorder adds two host reads a run (the replay seed before the loop,
+    the rows and the result after it), none a turn.  ``recorder=None``
+    (default) runs exactly the recorder-free loop.
     """
-    _no_recorder(recorder)
+    kwargs = dict(max_turns=max_turns, tol=tol,
+                  cost_matrix_fn=cost_matrix_fn, incremental=incremental,
+                  verify_every=verify_every, repair_every=repair_every,
+                  dissat_fn=dissat_fn, theta=theta)
+    if recorder is None:
+        return _refine(problem, assignment, framework, **kwargs)
+    carried = incremental and cost_matrix_fn is None
+    run, b = _open_run(recorder, "refine", problem, assignment, framework,
+                       theta, incremental=carried)
+    rows = TurnRows()
+    recorder.begin_rows()
+    t0 = time.perf_counter()
+    with recorder.phase("core.refine", run):
+        result = _refine(problem, assignment, framework, rows=rows,
+                         **kwargs)
+        host, (raw,) = _host_result(
+            result, rows.tensor(len(_TURN_ROW), problem.device))
+    wall = time.perf_counter() - t0
+    k = problem.num_machines
+    cols = decode(raw, _TURN_ROW)
+    for t, (active, *row) in enumerate(zip(*cols)):
+        if active:
+            recorder._on_turn_row(t, t % k, *row)
+    turn_rows = recorder.take_rows()
+    recorder.record_turn_rows(run, turn_rows, b, carried=carried)
+    last = turn_rows[-1] if turn_rows else None
+    recorder.record_result(
+        run, host, wall=wall,
+        c0=float(last[7]) if carried and last is not None else None,
+        ct0=float(last[8]) if carried and last is not None else None)
+    return result
+
+
+# A telemetry turn row: active, moved, node, source, dest, gain, c0, ct0,
+# raw gain (the recorder's row is the turn index and the machine, then
+# the rest).
+_TURN_ROW = "bbiiiffff"
+
+
+def _refine(problem, assignment, framework: str, max_turns: int, tol: float,
+            cost_matrix_fn, incremental: bool, verify_every: int,
+            repair_every: int, dissat_fn, theta,
+            rows: TurnRows | None = None) -> RefineResult:
+    """The loop of :func:`refine`; ``rows`` (telemetry) takes each turn's
+    row on the device."""
     costs.is_sparse(problem)        # TypeError for anything else
     k = problem.num_machines
     dev = problem.device
@@ -257,13 +344,17 @@ def refine(problem, assignment, framework: str = costs.C_FRAMEWORK,
         if t and t % _SYNC_EVERY == 0 and not bool(idle < k):
             break
         active = idle < k
+        before = carry.assignment
         if incremental:
-            carry, res = _turn_incremental(problem, carry, t % k, framework,
-                                           tol, total_b, dissat_fn, theta,
-                                           active)
+            carry, res, dissat = _turn_incremental(
+                problem, carry, t % k, framework, tol, total_b, dissat_fn,
+                theta, active)
         else:
-            carry, res = _turn(problem, carry, t % k, framework, tol,
-                               cost_matrix_fn, theta, active)
+            carry, res, dissat = _turn(problem, carry, t % k, framework,
+                                       tol, cost_matrix_fn, theta, active)
+        if rows is not None:
+            rows.append(active, *res,
+                        _raw_best_gain(dissat, before, t % k, theta))
         idle = torch.where(res.moved, 0, idle + 1)
         turns = turns + active.to(torch.int32)
         moves = moves + res.moved.to(torch.int32)
@@ -297,8 +388,40 @@ def refine_traced(problem, assignment, framework: str = costs.C_FRAMEWORK,
     on the recompute path they are evaluated from scratch each turn.  As in
     the reference, every one of the ``max_turns`` turns runs (masked once
     converged), and ``verify_every`` resyncs at every boundary.
+
+    ``recorder`` opts into telemetry (DESIGN.md §14): after the run the
+    trace — with a θ-free raw gain per turn, for hysteresis-vs-satisfied
+    rejection labels — is read back once and ingested into per-turn
+    events, and the run closes with drift + ``run_end`` events.
+    ``recorder=None`` (default) runs exactly the recorder-free loop.
     """
-    _no_recorder(recorder)
+    if recorder is None:
+        return _refine_traced(problem, assignment, framework, max_turns,
+                              tol, incremental, verify_every, theta)
+    run, b = _open_run(recorder, "refine_traced", problem, assignment,
+                       framework, theta, incremental=incremental)
+    raws: list = []
+    t0 = time.perf_counter()
+    with recorder.phase("core.refine_traced", run):
+        result, trace = _refine_traced(problem, assignment, framework,
+                                       max_turns, tol, incremental,
+                                       verify_every, theta, raws)
+        host, more = _host_result(result, *trace, *raws)
+    wall = time.perf_counter() - t0
+    tr = Trace(*more[:len(trace)])
+    recorder.record_trace(run, tr, b, problem.num_machines,
+                          raw_gain=np.asarray(more[len(trace):]))
+    last = max(int(host.num_turns) - 1, 0)
+    recorder.record_result(run, host, wall=wall, c0=float(tr.c0[last]),
+                           ct0=float(tr.ct0[last]))
+    return result, trace
+
+
+def _refine_traced(problem, assignment, framework: str, max_turns: int,
+                   tol: float, incremental: bool, verify_every: int, theta,
+                   raws: list | None = None):
+    """The loop of :func:`refine_traced`; ``raws`` (telemetry) takes each
+    turn's θ-free best gain."""
     costs.is_sparse(problem)        # TypeError for anything else
     k = problem.num_machines
     dev = problem.device
@@ -313,16 +436,19 @@ def refine_traced(problem, assignment, framework: str = costs.C_FRAMEWORK,
     rows = []
     for t in range(max_turns):
         active = idle < k
+        before = carry.assignment
         if incremental:
-            carry, res = _turn_incremental(problem, carry, t % k, framework,
-                                           tol, total_b, _assembled_dissat,
-                                           theta, active)
+            carry, res, dissat = _turn_incremental(
+                problem, carry, t % k, framework, tol, total_b,
+                _assembled_dissat, theta, active)
             c0, ct0 = carry.c0, carry.ct0
         else:
-            carry, res = _turn(problem, carry, t % k, framework, tol,
-                               theta=theta, active=active)
+            carry, res, dissat = _turn(problem, carry, t % k, framework, tol,
+                                       theta=theta, active=active)
             c0 = costs.global_cost_c0(problem, carry.assignment)
             ct0 = costs.global_cost_ct0(problem, carry.assignment)
+        if raws is not None:
+            raws.append(_raw_best_gain(dissat, before, t % k, theta))
         idle = torch.where(res.moved, 0, idle + 1)
         if incremental and verify_every and (t + 1) % verify_every == 0:
             carry, observed = agg_mod.resync(problem, carry)
@@ -362,11 +488,14 @@ def refine_simultaneous(problem, assignment,
     potentials; ``num_moves`` counts actual transfers.  This is
     :func:`refine_sweeps`' degenerate setting (``moves_per_machine=1``,
     ``move_prob=1``, ``epsilon=0``), run by the same sweep body, so the
-    two agree bitwise by construction (DESIGN.md §17).
+    two agree bitwise by construction (DESIGN.md §17).  ``recorder`` as
+    in :func:`refine_sweeps`; its run is labelled ``refine_simultaneous``.
     """
-    return refine_sweeps(problem, assignment, framework,
-                         max_sweeps=max_sweeps, tol=tol, theta=theta,
-                         recorder=recorder)
+    kwargs = dict(max_sweeps=max_sweeps, tol=tol, theta=theta)
+    if recorder is None:
+        return _refine_sweeps(problem, assignment, framework, **kwargs)
+    return _recorded_sweeps(recorder, "refine_simultaneous", {}, problem,
+                            assignment, framework, theta, kwargs)
 
 
 class SweepCandidateFn(Protocol):
@@ -465,6 +594,11 @@ def refine_sweeps(problem, assignment, framework: str = costs.C_FRAMEWORK,
     each multi-window update reads its deepest row group
     (:func:`~repro_torch.core.aggregate.add_windows`).
 
+    ``recorder`` (a :class:`repro_torch.obs.Recorder`) opts into
+    telemetry: per-sweep events (potentials and movers, read back once
+    after the run) plus drift + ``run_end``; ``recorder=None`` (default)
+    runs exactly the recorder-free loop.
+
     Returns ``(RefineResult, (c0s, ct0s, active))`` like
     :func:`refine_simultaneous`.
     """
@@ -479,7 +613,49 @@ def refine_sweeps(problem, assignment, framework: str = costs.C_FRAMEWORK,
     if sweep_fn is not None and dissat_fn is not None:
         raise ValueError("pass sweep_fn or dissat_fn, not both (sweep_fn "
                          "subsumes the per-node reduction)")
-    _no_recorder(recorder)
+    kwargs = dict(max_sweeps=max_sweeps, tol=tol, theta=theta,
+                  moves_per_machine=moves_per_machine, move_prob=move_prob,
+                  epsilon=epsilon, generator=generator, dissat_fn=dissat_fn,
+                  sweep_fn=sweep_fn)
+    if recorder is None:
+        return _refine_sweeps(problem, assignment, framework, **kwargs)
+    meta = dict(moves_per_machine=(-1 if moves_per_machine is None
+                                   else moves_per_machine),
+                move_prob=move_prob, epsilon=epsilon)
+    return _recorded_sweeps(recorder, "refine_sweeps", meta, problem,
+                            assignment, framework, theta, kwargs)
+
+
+def _recorded_sweeps(recorder, runtime: str, meta: dict, problem,
+                     assignment, framework: str, theta, kwargs: dict):
+    """A sweep run under ``recorder``: ``run_start``, the timed run, one
+    read-back of its per-sweep outputs and movers, ``sweep`` events and
+    the closing drift + ``run_end``."""
+    run, _ = _open_run(recorder, runtime, problem, assignment, framework,
+                       theta, **meta)
+    movers: list = []
+    t0 = time.perf_counter()
+    with recorder.phase(f"core.{runtime}", run):
+        result, outs = _refine_sweeps(problem, assignment, framework,
+                                      movers=movers, **kwargs)
+        host, (c0s, ct0s, active, *mv) = _host_result(result, *outs,
+                                                      *movers)
+    wall = time.perf_counter() - t0
+    mv = np.asarray(mv + [0] * (len(active) - len(mv)), np.int32)
+    recorder.record_sweeps(run, c0s, ct0s, active, movers=mv)
+    last = max(int(host.num_turns) - 1, 0)
+    recorder.record_result(run, host, wall=wall, c0=float(c0s[last]),
+                           ct0=float(ct0s[last]))
+    return result, outs
+
+
+def _refine_sweeps(problem, assignment, framework: str, max_sweeps: int,
+                   tol: float, theta, moves_per_machine: int | None = 1,
+                   move_prob: float = 1.0, epsilon: float = 0.0,
+                   generator=None, dissat_fn=None, sweep_fn=None,
+                   movers: list | None = None):
+    """The loop of :func:`refine_sweeps`; ``movers`` (telemetry) takes
+    each executed sweep's accepted count."""
     costs.is_sparse(problem)        # TypeError for anything else
     k = problem.num_machines
     n = problem.num_nodes
@@ -560,6 +736,8 @@ def refine_sweeps(problem, assignment, framework: str = costs.C_FRAMEWORK,
             agg = agg_mod.rebuild_state(
                 problem, torch.where(accept, best, agg.assignment), total_b)
         moves = moves + n_acc
+        if movers is not None:
+            movers.append(n_acc)
         c0s.append(agg.c0)
         ct0s.append(agg.ct0)
         actives.append(True)

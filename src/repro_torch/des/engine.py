@@ -52,6 +52,12 @@ Refinement rounds call :func:`repro_torch.core.refine.refine` (kernel 1 on
 the card) for a lone run and :func:`repro_torch.core.batch.refine_batched`
 (kernel 3) for a fleet; with ``refine_backend="distributed"``, each
 element's round calls :func:`repro_torch.distributed.refine_distributed`.
+
+Telemetry (``recorder=``, DESIGN.md §14) writes a lone run's tick rows on
+the ``trace_stride`` cadence into a buffer on the device from inside the
+(graph-captured) tick, completes a refinement tick's row after its round,
+and reads the rows back when the buffer could fill and once at the end.
+Without a recorder the ticks are exactly the recorder-free ones.
 """
 from __future__ import annotations
 
@@ -67,7 +73,8 @@ from ..core.batch import (_map, refine_batched, stack_pytrees,
 from ..core.problem import PartitionProblem, resolve_device
 from ..core.refine import refine
 from ..distributed.runtime import refine_distributed
-from .scenarios import SpeedSchedule, speeds_at
+from ..obs.rows import TickRows, TurnRows, decode, read_back
+from .scenarios import SpeedSchedule, segment_at, speeds_at
 
 NORMAL = 0
 ROLLBACK = 1
@@ -79,6 +86,9 @@ _SYNC_TICKS = 256
 
 # Ticks in one CUDA graph of the run loop on the card.
 _GRAPH_TICKS = 16
+
+# Least capacity of a lone run's buffer of telemetry tick rows.
+_TICK_ROWS = 4096
 
 @dataclasses.dataclass(frozen=True)
 class DESConfig:
@@ -103,7 +113,7 @@ class DESConfig:
     refine_max_turns: int = 256
     refine_mu: float = 8.0
     # "single" = the single-controller loop of core/refine.py;
-    # "distributed" = the sharded runtime, which is not ported yet.
+    # "distributed" = the sharded runtime of repro_torch.distributed.
     refine_backend: str = "single"
     refine_num_shards: int = 0    # 0 = one shard per machine
     # the incremental aggregate-state path (DESIGN.md §10) by default;
@@ -693,11 +703,105 @@ def _check_backend(cfg: DESConfig, dissat_fn=None) -> None:
     raise ValueError(f"unknown refine_backend {cfg.refine_backend!r}")
 
 
-def _no_telemetry(*hooks) -> None:
-    if any(h is not None for h in hooks):
-        raise NotImplementedError(
-            "DES telemetry (recorder=, emit_tick=, emit_refine=) is not "
-            "ported yet; it comes with the telemetry slice of the port")
+# A telemetry tick row: t, gvt, processed, rollbacks, refines, moves, mean
+# backlog, weighted-backlog CV, speed segment, frozen LPs (the reference's
+# ``emit_tick`` columns); a refinement row: t, moves, frozen.
+_TICK_ROW = "ifiiiiffii"
+_REFINE_ROW = "iii"
+
+
+def _tick_row(cfg: DESConfig, s: DESState, new: DESState, speeds,
+              segment) -> tuple:
+    """The reference's tick row, one (B,) tensor a column, of the tick
+    ``s`` → ``new`` run at ``speeds`` (B, K) in speed segment ``segment``
+    (B,): the backlog per machine of the LPs' pre-tick machines, its mean
+    over machines, and the CV ``std / max(mean, 1e-12)`` (f32, population
+    std) of the speed-normalized backlog."""
+    k = cfg.num_machines
+    lens = torch.sum(new.ev.valid, dim=-1)
+    total_len = _machine_counts(s.machine, k, lens).to(torch.float32)
+    nlps_f = torch.clamp(_machine_counts(s.machine, k).to(torch.float32),
+                         min=1.0)
+    mean_len = total_len / nlps_f
+    wload = total_len / torch.clamp(speeds, min=1e-6)
+    cv = torch.std(wload, dim=-1, unbiased=False) \
+        / torch.clamp(torch.mean(wload, dim=-1), min=1e-12)
+    return (new.tick, new.gvt, new.processed, new.rollbacks, new.refines,
+            new.moves, torch.mean(mean_len, dim=-1), cv, segment,
+            _frozen(new))
+
+
+def _segments(sched: SpeedSchedule | None, tick: torch.Tensor):
+    """(B,) speed segments in effect at the (B,) ``tick``: 0 throughout
+    without a schedule, as the reference records them."""
+    return torch.zeros_like(tick) if sched is None \
+        else segment_at(sched, tick)
+
+
+def _frozen(s: DESState) -> torch.Tensor:
+    """(B,) LPs pinned by a migration freeze (busy with the no-op
+    marker)."""
+    return torch.sum(s.busy & (s.cur_thread == -1), dim=-1,
+                     dtype=torch.int32)
+
+
+def _refine_row(cfg: DESConfig, s: DESState, after: DESState) -> tuple:
+    """The reference's ``des_refine`` row of a round taking ``s`` to
+    ``after``: the tick, the LPs moved, the LPs the round froze."""
+    moved = after.machine != s.machine
+    if cfg.migration_freeze > 0:
+        freeze = torch.round(cfg.migration_freeze * _live_state_size(s)
+                             * cfg.inter_delay).to(torch.int32)
+        frozen = torch.sum(moved & (freeze > 0), dim=-1, dtype=torch.int32)
+    else:
+        frozen = torch.zeros_like(after.tick)
+    return (after.tick, torch.sum(moved, dim=-1, dtype=torch.int32), frozen)
+
+
+class _Telemetry:
+    """A lone run's telemetry on the device: the tick rows (written inside
+    the tick, see :class:`_Ticks`), the refinement rows, how many tick
+    rows may have been written since the last read-back, and the run's
+    speed schedule."""
+
+    def __init__(self, cfg: DESConfig, period: int,
+                 sched: SpeedSchedule | None, tick: torch.Tensor,
+                 capacity: int):
+        self.per_chunk = period // cfg.trace_stride + 1
+        self.ticks = TickRows(max(capacity, self.per_chunk),
+                              len(_TICK_ROW), tick.device)
+        self.refines = TurnRows()
+        self.pending = 0
+        self.sched = sched
+
+    def before_chunk(self) -> None:
+        """Read the tick rows back if the next chunk could fill the
+        buffer."""
+        if self.pending + self.per_chunk > self.ticks.capacity:
+            self.ticks.drain()
+            self.pending = 0
+        self.pending += self.per_chunk
+
+    def after_round(self, cfg: DESConfig, s: DESState,
+                    after: DESState) -> None:
+        """Record a refinement round (``s`` → ``after``) and complete the
+        row of its tick: the round's refines, moves and frozen LPs."""
+        row = _refine_row(cfg, s, after)
+        self.refines.append(*(x[0] for x in row))
+        self.ticks.patch_last(after.tick[0], {4: after.refines[0],
+                                              5: after.moves[0],
+                                              9: _frozen(after)[0]})
+
+    def take(self, final: DESState):
+        """Every row and ``final``'s element-0 counters, read back in one
+        transfer: ``(tick rows, refinement rows, counters)``."""
+        counters = [final.moves[0], final.tick[0], final.done[0],
+                    final.processed[0], final.rollbacks[0],
+                    final.refines[0], final.gvt[0]]
+        extra = self.ticks.drain(
+            self.refines.tensor(len(_REFINE_ROW), final.tick.device),
+            *counters)
+        return self.ticks.rows(), extra[0], extra[1:]
 
 
 def _refine_partition(cfg: DESConfig, nbr: torch.Tensor, s: DESState,
@@ -817,14 +921,28 @@ class _Ticks:
     reads and writes one set of state buffers, and replayed: the same
     kernels on the same values, so every state is bitwise the eager one
     (``graph_ticks=0``: every tick eager on the card too).  ``state``
-    reads the buffers; assigning it copies into them."""
+    reads the buffers; assigning it copies into them.
+
+    ``tel`` (telemetry, a lone run) takes each live tick's row on the
+    ``trace_stride`` cadence, written by the step itself — so a captured
+    graph writes it too."""
 
     def __init__(self, cfg: DESConfig, nbr, state: DESState, speeds_of,
-                 graph_ticks: int = _GRAPH_TICKS):
+                 graph_ticks: int = _GRAPH_TICKS,
+                 tel: _Telemetry | None = None):
         def step(s):
             live = _alive(cfg, s)
-            return _where(live, _tick(cfg, nbr, s, speeds_of(s.tick)), s)
+            speeds = speeds_of(s.tick)
+            new = _where(live, _tick(cfg, nbr, s, speeds), s)
+            if tel is not None:
+                row = _tick_row(cfg, s, new, speeds,
+                                _segments(tel.sched, s.tick))
+                tel.ticks.write(
+                    live[0] & (new.tick[0] % cfg.trace_stride == 0),
+                    *(x[0] for x in row))
+            return new
         self.step = step
+        self.rows = None if tel is None else tel.ticks
         self.graph = None
         self.graph_ticks = graph_ticks
         self.on_card = state.tick.is_cuda and graph_ticks > 0
@@ -843,11 +961,15 @@ class _Ticks:
             self._state = new
 
     def _capture(self) -> None:
+        if self.rows is not None:              # the warm-up's row is not
+            ptr = self.rows.ptr.clone()        # one of the run's
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):          # warm-up, result discarded
             self.step(_map(torch.clone, self._state))
         torch.cuda.current_stream().wait_stream(side)
+        if self.rows is not None:
+            self.rows.ptr.copy_(ptr)
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.graph):
             cur = self._state
@@ -868,7 +990,8 @@ class _Ticks:
 
 def _run(cfg: DESConfig, nbr: torch.Tensor, s: DESState,
          sched: SpeedSchedule | None, chunk: int, batched: bool,
-         dissat_fn=None, graph_ticks: int = _GRAPH_TICKS) -> DESState:
+         dissat_fn=None, graph_ticks: int = _GRAPH_TICKS,
+         tick_rows: int = 0):
     """Run a stack until every element drains (or reaches ``max_ticks``).
 
     Ticks run in chunks of ``refine_freq`` (``chunk`` without refinement),
@@ -878,16 +1001,26 @@ def _run(cfg: DESConfig, nbr: torch.Tensor, s: DESState,
     its last tick — where its tick-by-tick run refines inside that tick.
     Within a chunk the host reads whether anything is alive once every
     ``_SYNC_TICKS`` ticks, and stops ticking when nothing is.
-    ``graph_ticks`` is the length of the card's CUDA graphs (0: eager)."""
+    ``graph_ticks`` is the length of the card's CUDA graphs (0: eager).
+
+    ``tick_rows > 0`` (telemetry, a lone run) also records its tick rows,
+    in a device buffer of at least ``tick_rows`` rows, and its refinement
+    rows, and returns ``(final state, tick rows, refinement rows, final
+    counters)``, all read back in one transfer at the end (and the tick
+    rows also whenever the next chunk could fill their buffer)."""
     freq = cfg.refine_freq
     period = freq if freq > 0 else max(1, min(chunk, cfg.max_ticks))
     speeds_of = _speeds_fn(cfg, s, sched)
-    ticks = _Ticks(cfg, nbr, s, speeds_of, graph_ticks)
+    tel = _Telemetry(cfg, period, sched, s.tick, tick_rows) \
+        if tick_rows > 0 else None
+    ticks = _Ticks(cfg, nbr, s, speeds_of, graph_ticks, tel)
     tick0, alive = torch.stack([s.tick[0],
                                 _alive(cfg, s).any().to(torch.int32)]
                                ).tolist()                       # host sync
     length = period - tick0 % period
     while alive:
+        if tel is not None:
+            tel.before_chunk()
         prev_tick = ticks.state.tick.clone()
         ran = 0
         while ran < length:
@@ -901,13 +1034,18 @@ def _run(cfg: DESConfig, nbr: torch.Tensor, s: DESState,
             pred = ((s.tick % freq == 0) & ~s.done
                     & (s.tick != prev_tick)).tolist()           # host sync
             if any(pred):
-                ticks.state = _refine_where(cfg, nbr, s,
-                                            speeds_of(s.tick - 1), pred,
-                                            batched, dissat_fn)
+                after = _refine_where(cfg, nbr, s, speeds_of(s.tick - 1),
+                                      pred, batched, dissat_fn)
+                if tel is not None:
+                    tel.after_round(cfg, s, after)
+                ticks.state = after
                 alive = bool(_alive(cfg, ticks.state).any())
         length = period
-    return _map(torch.clone, ticks.state) if ticks.on_card \
+    final = _map(torch.clone, ticks.state) if ticks.on_card \
         else ticks.state
+    if tel is None:
+        return final
+    return (final, *tel.take(final))
 
 
 def _device_inputs(adj, state: DESState, speed_schedule, lone: bool):
@@ -935,21 +1073,34 @@ def des_tick(cfg: DESConfig, adj, state: DESState,
     effect this tick (speed-churn scenarios, :mod:`repro_torch.des.
     scenarios`); otherwise ``cfg.machine_speeds`` applies throughout.
     A tick on the refinement cadence refines (phase P6), which reads the
-    cadence flag back to the host.  ``emit_tick`` / ``emit_refine``
-    (telemetry) are not ported yet and raise; ``dissat_fn`` is
+    cadence flag back to the host.  ``dissat_fn`` is
     :func:`~repro_torch.core.refine.refine`'s 9-argument seam for the
     refinement round (``None``: kernel 1 on the card).
+
+    ``emit_tick`` / ``emit_refine`` (telemetry, e.g. a recorder's
+    ``_on_tick_row`` / ``_on_refine_row``) are called on the host with the
+    reference's rows as numpy scalars — ``emit_tick`` when the new tick is
+    on the ``trace_stride`` cadence, ``emit_refine`` when the tick ran a
+    refinement round — read back in one transfer after the tick.
     """
-    _no_telemetry(emit_tick, emit_refine)
     _check_backend(cfg, dissat_fn)
     nbr, sched = _device_inputs(adj, state, speed_schedule, lone=True)
     s = stack_pytrees([state])
     speeds = _speeds_fn(cfg, s, sched)(s.tick)
-    s = _tick(cfg, nbr, s, speeds)
+    new = _tick(cfg, nbr, s, speeds)
+    after, refined = new, False
     if cfg.refine_freq > 0:
-        pred = ((s.tick % cfg.refine_freq == 0) & ~s.done).tolist()
-        s = _refine_where(cfg, nbr, s, speeds, pred, False, dissat_fn)
-    return unstack_pytree(s, 0)
+        pred = ((new.tick % cfg.refine_freq == 0) & ~new.done).tolist()
+        after = _refine_where(cfg, nbr, new, speeds, pred, False, dissat_fn)
+        refined = pred[0]
+    if emit_tick is not None or emit_refine is not None:
+        row = _tick_row(cfg, s, after, speeds, _segments(sched, s.tick))
+        host = read_back(*(x[0] for x in row + _refine_row(cfg, new, after)))
+        if emit_tick is not None and int(host[0]) % cfg.trace_stride == 0:
+            emit_tick(*host[:len(_TICK_ROW)])
+        if emit_refine is not None and refined:
+            emit_refine(*host[len(_TICK_ROW):])
+    return unstack_pytree(after, 0)
 
 
 def run_simulation(cfg: DESConfig, adj, state: DESState,
@@ -963,25 +1114,56 @@ def run_simulation(cfg: DESConfig, adj, state: DESState,
     run happens on ``state``'s device; ``adj`` is the (N, N) topology.
     Refinement rounds call :func:`~repro_torch.core.refine.refine` with
     ``dissat_fn`` (``None``: kernel 1 on the card, its twin on the CPU).
-    ``recorder`` (telemetry) is not ported yet and raises.
+
+    ``recorder`` (a :class:`repro_torch.obs.Recorder`, DESIGN.md §14)
+    opts into telemetry: one ``tick`` event per ``trace_stride`` ticks
+    (GVT, cumulative counters, backlog CV, schedule segment, frozen
+    LPs), one ``des_refine`` event per executed refinement round, and a
+    closing ``run_end``.  The rows are written on the device inside the
+    ticks (the card's CUDA graphs capture the writes) and read back at
+    the end — and before a chunk that could fill their buffer of at
+    least ``_TICK_ROWS`` rows.  ``recorder=None`` (default) runs exactly
+    the recorder-free ticks.
     """
-    _no_telemetry(recorder)
     return _run_lone(cfg, adj, state, speed_schedule, dissat_fn,
-                     _GRAPH_TICKS)
+                     _GRAPH_TICKS, recorder)
 
 
 def _run_lone(cfg: DESConfig, adj, state: DESState,
               speed_schedule: SpeedSchedule | None, dissat_fn,
-              graph_ticks: int) -> DESState:
+              graph_ticks: int, recorder=None,
+              tick_rows: int = _TICK_ROWS) -> DESState:
     """:func:`run_simulation` with the length of the card's CUDA graphs of
-    ticks chosen: ``graph_ticks=0`` runs every tick eagerly, the reference
-    that checks of the replayed ticks compare against."""
-    _check_backend(cfg, dissat_fn)
-    nbr, sched = _device_inputs(adj, state, speed_schedule, lone=True)
-    out = _run(cfg, nbr, stack_pytrees([state]), sched,
-               DEFAULT_BATCH_CHUNK, batched=False, dissat_fn=dissat_fn,
-               graph_ticks=graph_ticks)
-    return unstack_pytree(out, 0)
+    ticks chosen — ``graph_ticks=0`` runs every tick eagerly, the
+    reference that checks of the replayed ticks compare against — and,
+    with a ``recorder``, the least capacity of the tick-row buffer."""
+    def go(rows: int):
+        _check_backend(cfg, dissat_fn)
+        nbr, sched = _device_inputs(adj, state, speed_schedule, lone=True)
+        return _run(cfg, nbr, stack_pytrees([state]), sched,
+                    DEFAULT_BATCH_CHUNK, batched=False, dissat_fn=dissat_fn,
+                    graph_ticks=graph_ticks, tick_rows=rows)
+
+    if recorder is None:
+        return unstack_pytree(go(0), 0)
+    run = recorder.new_run(
+        "des", n=cfg.num_lps, k=cfg.num_machines,
+        refine_freq=cfg.refine_freq, backend=cfg.refine_backend,
+        trace_stride=cfg.trace_stride, theta=cfg.refine_theta_scale > 0)
+    recorder.begin_rows()
+    with recorder.phase("des.run_simulation", run):
+        final, ticks, refines, counters = go(tick_rows)
+    for row in zip(*decode(ticks, _TICK_ROW)):
+        recorder._on_tick_row(*row)
+    for row in zip(*decode(refines, _REFINE_ROW)):
+        recorder._on_refine_row(*row)
+    recorder.record_des_rows(run)
+    moves, tick, done, processed, rollbacks, refines_n, gvt = counters
+    recorder.emit(
+        "run_end", run, num_moves=int(moves), num_turns=int(tick),
+        converged=bool(done), processed=int(processed),
+        rollbacks=int(rollbacks), refines=int(refines_n), gvt=float(gvt))
+    return unstack_pytree(final, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -1009,11 +1191,40 @@ def run_simulation_batch(cfg: DESConfig, adjs, states: DESState,
     the card; ``dissat_fn`` its batched seam) on the elements whose
     cadence hits, so every element's final state — traces included — is
     bitwise the state its own :func:`run_simulation` reaches.  ``chunk``
-    only applies when ``cfg.refine_freq == 0``.  ``recorder`` is not
-    ported yet and raises.
+    only applies when ``cfg.refine_freq == 0``.
+
+    ``recorder`` opts into telemetry as the reference's does: per-tick
+    streaming is left out for fleets, so the run emits one host-side
+    ``element`` summary per scenario after the fleet drains (ticks,
+    counters, time-averaged weighted-backlog CV over the trace rows)
+    plus a closing ``run_end``.  ``recorder=None`` runs the identical
+    fleet.
     """
-    _no_telemetry(recorder)
     _check_backend(cfg, dissat_fn)
     nbr, sched = _device_inputs(adjs, states, speed_schedules, lone=False)
-    return _run(cfg, nbr, states, sched, chunk, batched=True,
-                dissat_fn=dissat_fn)
+    if recorder is None:
+        return _run(cfg, nbr, states, sched, chunk, batched=True,
+                    dissat_fn=dissat_fn)
+    from ..sweeps.metrics import time_averaged_cv  # sweeps imports des
+    batch = int(nbr.shape[0])
+    run = recorder.new_run(
+        "des_batch", n=cfg.num_lps, k=cfg.num_machines, batch=batch,
+        refine_freq=cfg.refine_freq, backend=cfg.refine_backend)
+    with recorder.phase("des.run_simulation_batch", run):
+        final = _run(cfg, nbr, states, sched, chunk, batched=True,
+                     dissat_fn=dissat_fn)
+        (ticks, processed, rollbacks, refines, moves, done, wload,
+         ptrs) = read_back(final.tick, final.processed, final.rollbacks,
+                           final.refines, final.moves, final.done,
+                           final.trace_wload, final.trace_ptr)
+    for i in range(batch):
+        recorder.emit(
+            "element", run, batch=i, ticks=int(ticks[i]),
+            processed=int(processed[i]), rollbacks=int(rollbacks[i]),
+            refines=int(refines[i]), moves=int(moves[i]),
+            converged=bool(done[i]),
+            wload_cv=time_averaged_cv(wload[i][:int(ptrs[i])]))
+    recorder.emit("run_end", run, num_moves=int(moves.sum()),
+                  num_turns=int(ticks.max()) if batch else 0,
+                  converged=bool(done.all()))
+    return final

@@ -60,6 +60,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..obs.recorder import _host
 from . import protocol
 
 #: bytes per replayed winner record when a repair catches a shard up from
@@ -442,9 +443,47 @@ def raise_if_failed(report: FaultReport, *,
 def emit_fault_events(recorder, run: str, plan: FaultPlan, rounds: int,
                       repair_drift=None, repaired_cols=None,
                       repaired=None) -> None:
-    """Replay the plan's executed rounds into fault telemetry events.  Not
-    ported yet: it comes with the telemetry slice of the port
-    (``repro_torch.obs``)."""
-    raise NotImplementedError(
-        "fault telemetry (emit_fault_events) is not ported yet; it comes "
-        "with the telemetry slice of the port")
+    """Replay the plan's executed rounds into fault telemetry events.
+
+    ``repair_drift``/``repaired_cols``/``repaired`` are the per-round
+    side outputs of the traced faulty driver when available (tensors on
+    any device, or arrays); without them repair events carry the plan's
+    schedule only.
+    """
+    rounds = int(rounds)
+    idx = np.minimum(np.arange(rounds), plan.horizon)
+    down = np.asarray(plan.down)[idx]
+    omit = np.asarray(plan.omit)[idx]
+    lost = np.asarray(plan.lost)[idx]
+    dup = np.asarray(plan.dup)[idx]
+    corrupt = np.asarray(plan.corrupt)[idx]
+    delivered = np.asarray(plan.delivered)[idx]
+    retries = np.asarray(plan.retries)[idx]
+    lag = np.asarray(plan.lag)[idx]
+    quarantined = np.asarray(plan.quarantined)[idx]
+    repair = np.asarray(plan.repair)[idx]
+    drift = _host(repair_drift) if repair_drift is not None else None
+    cols = _host(repaired_cols) if repaired_cols is not None else None
+    did = _host(repaired) if repaired is not None else None
+    for t in range(rounds):
+        for s in range(plan.num_shards):
+            for name, hit in (("down", down[t, s]),
+                              ("omit", omit[t, s]),
+                              ("dup", dup[t, s]),
+                              ("corrupt", corrupt[t, s])):
+                if hit:
+                    recorder.emit("fault_injected", run, t=t, shard=s,
+                                  fault=name)
+            if lost[t, s]:
+                recorder.emit("exchange_retry", run, t=t, shard=s,
+                              attempts=int(retries[t, s]),
+                              delivered=bool(delivered[t, s]))
+            if lag[t, s] or quarantined[t, s]:
+                recorder.emit("staleness", run, t=t, shard=s,
+                              lag=int(lag[t, s]),
+                              quarantined=bool(quarantined[t, s]))
+        if repair[t].any() and (did is None or did[t]):
+            recorder.emit(
+                "repair", run, t=t, action="column",
+                drift=float(drift[t]) if drift is not None else None,
+                cols=int(cols[t]) if cols is not None else None)

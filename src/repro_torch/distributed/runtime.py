@@ -67,6 +67,7 @@ from __future__ import annotations
 import contextlib
 import os
 import tempfile
+import time
 from typing import NamedTuple
 
 import torch
@@ -75,10 +76,10 @@ from ..core import aggregate as agg_mod
 from ..core import costs
 from ..core.problem import PartitionProblem, make_state
 from ..core.refine import (_SYNC_EVERY, DEFAULT_TOL, RefineResult, Trace,
-                           _assembled_dissat, _no_recorder, _resolve_theta)
+                           _assembled_dissat, _open_run, _resolve_theta)
 from ..kernels import ops
-from . import faults, protocol
-from .views import ShardViews, build_views, shard_node_values
+from . import accounting, faults, protocol
+from .views import ShardViews, boundary_stats, build_views, shard_node_values
 
 
 class WireMeasurement(NamedTuple):
@@ -1012,14 +1013,21 @@ def refine_distributed_shard_map(problem: PartitionProblem, assignment,
     :class:`WireMeasurement` of the gathered buffers per turn (DESIGN.md
     §14.5).  ``fault_plan`` runs the faulty collective path and returns
     ``(result, report)`` (``(result, wire, report)`` with
-    ``measure_wire``).  ``recorder`` (telemetry) is not ported yet and
-    raises.
+    ``measure_wire``).
+
+    ``recorder`` (a :class:`repro_torch.obs.Recorder`) opts into run
+    telemetry on rank 0 only: a phase-timed ``run_start``/``wire``/
+    ``run_end`` stream (and the fault events of a ``fault_plan`` run),
+    the measured bytes reconciled against the analytic ledger.  Every
+    rank runs the same protocol, so one rank's stream is the run's; the
+    other ranks ignore their ``recorder``.
     """
-    _no_recorder(recorder)
     s = _resolve_shards(problem, num_shards)
     if devices is not None and len(devices) < s:
         raise _need_ranks(s, len(devices))
     with _process_group(problem.device, s) as rank:
+        rec = recorder if rank == 0 else None
+        theta_in = theta
         views = build_views(problem, s)
         theta = _resolve_theta(theta, problem)
         theta_blocks = None if theta is None else shard_node_values(theta, s)
@@ -1031,56 +1039,124 @@ def refine_distributed_shard_map(problem: PartitionProblem, assignment,
             return _shard_map_faulty_run(
                 problem, state0, fault_plan, framework, s, me, rank,
                 total_b, max_turns, tol,
-                degraded or faults.DEFAULT_DEGRADED, measure_wire, setup)
-        k, dev = problem.num_machines, problem.device
-        agg = me.aggregate(state0.assignment)
-        r, loads = state0.assignment, state0.loads
-        idle, turns, moves = _zero(dev), _zero(dev), _zero(dev)
-        per_turn = 0
-        for t in range(max_turns):
-            if t and t % _SYNC_EVERY == 0 and not bool(idle < k):
-                break
-            active = idle < k
-            machine = t % k
-            cand = me.candidate(problem, agg, r, loads, total_b, framework,
-                                machine)
-            cands, per_turn = _gather_candidates(cand, s)
-            winner = protocol.elect(cands, tol)
-            moved = winner.moved & active
-            delta = protocol.move_delta(k, machine, winner.dest, moved,
-                                        loads.dtype, dev)
-            agg = protocol.update_block_aggregate(agg, me.rows, winner.node,
-                                                  delta)
-            r, loads = protocol.apply_move(r, loads, winner, delta, moved)
-            idle = torch.where(moved, 0, idle + 1)
-            turns = turns + active.to(torch.int32)
-            moves = moves + moved.to(torch.int32)
-        result = RefineResult(assignment=r, loads=loads, num_moves=moves,
-                              num_turns=turns, converged=idle >= k)
-        if not measure_wire:
+                degraded or faults.DEFAULT_DEGRADED, measure_wire, setup,
+                rec, theta_in)
+        run = None
+        if rec is not None:
+            run, _ = _open_run(rec, "shard_map", problem, assignment,
+                               framework, theta_in, num_shards=s)
+        t0 = time.perf_counter()
+        with _span(rec, "distributed.shard_map", run):
+            result, per_turn = _shard_map_loop(problem, me, state0, total_b,
+                                               framework, s, max_turns, tol)
+            rounds = (int(result.num_turns) if measure_wire or rec
+                      is not None else None)                  # host sync
+        wall = time.perf_counter() - t0
+        if rounds is None:
             return result
-        rounds = int(turns)
-        return result, WireMeasurement(rounds, rounds * per_turn, setup)
+        wire = WireMeasurement(rounds, rounds * per_turn, setup)
+        if rec is not None:
+            _record_wire(rec, run, problem, s, wire)
+            rec.record_result(run, result, wall=wall)
+        return (result, wire) if measure_wire else result
+
+
+def _span(recorder, name: str, run):
+    """``recorder.phase(name, run)``, or nothing without a recorder."""
+    return (recorder.phase(name, run) if recorder is not None
+            else contextlib.nullcontext())
+
+
+def _shard_map_loop(problem, me: "_Rank", state0, total_b, framework: str,
+                    s: int, max_turns: int, tol: float):
+    """The collective driver's turns on this rank's block; returns the
+    result and the gathered candidates' bytes a turn."""
+    k, dev = problem.num_machines, problem.device
+    agg = me.aggregate(state0.assignment)
+    r, loads = state0.assignment, state0.loads
+    idle, turns, moves = _zero(dev), _zero(dev), _zero(dev)
+    per_turn = 0
+    for t in range(max_turns):
+        if t and t % _SYNC_EVERY == 0 and not bool(idle < k):
+            break
+        active = idle < k
+        machine = t % k
+        cand = me.candidate(problem, agg, r, loads, total_b, framework,
+                            machine)
+        cands, per_turn = _gather_candidates(cand, s)
+        winner = protocol.elect(cands, tol)
+        moved = winner.moved & active
+        delta = protocol.move_delta(k, machine, winner.dest, moved,
+                                    loads.dtype, dev)
+        agg = protocol.update_block_aggregate(agg, me.rows, winner.node,
+                                              delta)
+        r, loads = protocol.apply_move(r, loads, winner, delta, moved)
+        idle = torch.where(moved, 0, idle + 1)
+        turns = turns + active.to(torch.int32)
+        moves = moves + moved.to(torch.int32)
+    result = RefineResult(assignment=r, loads=loads, num_moves=moves,
+                          num_turns=turns, converged=idle >= k)
+    return result, per_turn
 
 
 def _shard_map_faulty_run(problem, state0, fault_plan, framework: str,
                           s: int, me: _Rank, rank: int, total_b,
                           max_turns: int, tol: float, degraded,
-                          measure_wire: bool, setup: int):
+                          measure_wire: bool, setup: int, recorder=None,
+                          theta=None):
     """Collective faulty path (DESIGN.md §15.3): every rank reads the same
     plan; each masks, injects and repairs only its *own* block, the
     outcome scalars reduce with MAX/SUM all-reduces, and the
-    recover-or-raise audit is the emulated drivers'."""
-    import torch.distributed as dist
-    k, dev = problem.num_machines, problem.device
+    recover-or-raise audit is the emulated drivers'.  ``recorder`` is
+    rank 0's (``None`` elsewhere); ``theta`` is the caller's, for the
+    ``run_start`` event."""
     plan = fault_plan
     if plan.num_shards != s:
         raise ValueError(f"fault plan covers {plan.num_shards} shards; the "
                          f"run has {s}")
+    msg = faults.message_bytes(traced=False, simultaneous=False,
+                               num_machines=problem.num_machines)
+    run = None
+    if recorder is not None:
+        run, _ = _open_run(recorder, "shard_map", problem,
+                           state0.assignment, framework, theta,
+                           num_shards=s, faults=True)
+    t0 = time.perf_counter()
+    with _span(recorder, "distributed.shard_map", run):
+        result, outcome, rounds, per_turn, extra = _shard_map_faulty_loop(
+            problem, state0, plan, framework, s, me, rank, total_b,
+            max_turns, tol, degraded, msg)
+    wall = time.perf_counter() - t0
+    report = faults.build_report(plan, outcome, rounds,
+                                 budget=degraded.repair_tol,
+                                 raise_on_failure=False)
+    wire = None
+    if measure_wire or recorder is not None:
+        wire = WireMeasurement(rounds, rounds * per_turn
+                               + sum(extra[:rounds]), setup)
+    if recorder is not None:
+        faults.emit_fault_events(recorder, run, plan, rounds)
+        _record_wire(recorder, run, problem, s, wire,
+                     fault_extra=faults.plan_extra_bytes(plan, rounds, msg))
+        recorder.record_result(run, result, wall=wall,
+                               recovered=report.recovered,
+                               recovery_drift=report.recovery_drift)
+    faults.raise_if_failed(report, budget=degraded.repair_tol)
+    if measure_wire:
+        return result, wire, report
+    return result, report
+
+
+def _shard_map_faulty_loop(problem, state0, plan, framework: str, s: int,
+                           me: _Rank, rank: int, total_b, max_turns: int,
+                           tol: float, degraded, msg: int):
+    """The faulty collective run's turns and final audit on this rank:
+    ``(result, outcome, rounds, candidate bytes a turn, per-round extra
+    bytes)``."""
+    import torch.distributed as dist
+    k, dev = problem.num_machines, problem.device
     dp = faults.device_plan(plan, dev)
     rtol, penalty = degraded.repair_tol, degraded.stale_penalty
-    msg = faults.message_bytes(traced=False, simultaneous=False,
-                               num_machines=k)
     kidx = torch.arange(k, device=dev)
     agg = me.aggregate(state0.assignment)
     r, loads = state0.assignment, state0.loads
@@ -1157,53 +1233,150 @@ def _shard_map_faulty_run(problem, state0, fault_plan, framework: str,
         repairs=_all_reduce(repairs, dist.ReduceOp.SUM),
         repaired_cols=_all_reduce(rcols, dist.ReduceOp.SUM) + fcols,
         max_repair_drift=_all_reduce(rdrift, dist.ReduceOp.MAX))
-    report = faults.build_report(plan, outcome, rounds,
-                                 budget=degraded.repair_tol,
-                                 raise_on_failure=False)
-    faults.raise_if_failed(report, budget=degraded.repair_tol)
-    if measure_wire:
-        wire = WireMeasurement(rounds, rounds * per_turn
-                               + sum(extra[:rounds]), setup)
-        return result, wire, report
-    return result, report
+    return result, outcome, rounds, per_turn, extra
 
 
 # ---------------------------------------------------------------------------
 # Public wrappers
 # ---------------------------------------------------------------------------
 
+def _record_wire(recorder, run: str, problem, num_shards: int,
+                 wire: WireMeasurement, *, traced: bool = False,
+                 simultaneous: bool = False, incremental: bool = True,
+                 fault_extra: int = 0) -> None:
+    """Reconcile a driver's measured wire counters against the analytic
+    ledger for the same executed run and emit the ``wire`` event.
+    ``fault_extra`` is the plan-derived retry/repair byte total of a
+    fault-injected run (``faults.plan_extra_bytes``)."""
+    stats = boundary_stats(problem, num_shards)
+    ledger = accounting.ledger_for_run(
+        stats, problem.num_machines, int(wire.rounds), traced=traced,
+        simultaneous=simultaneous, incremental=incremental,
+        fault_bytes=fault_extra)
+    recorder.record_wire(run, accounting.reconcile(ledger, wire))
+
+
+_MODES = {"plain": ("distributed", "distributed.refine"),
+          "traced": ("distributed_traced", "distributed.refine_traced"),
+          "sweep": ("distributed_sweep", "distributed.refine_simultaneous")}
+
+
 def _run_faulty_emulated(mode: str, problem, assignment, fault_plan,
                          framework, num_shards, max_rounds: int, tol: float,
                          cost_fn: str, incremental: bool, theta, degraded,
-                         measure_wire: bool):
+                         measure_wire: bool, recorder=None):
     """Shared recover-or-raise harness behind the three emulated public
     wrappers: run the faulty driver, audit its FaultOutcome into a
-    :class:`faults.FaultReport`, and raise the typed error on a dead
-    shard / blown recovery budget."""
+    :class:`faults.FaultReport`, stream telemetry when asked, and raise
+    the typed error on a dead shard / blown recovery budget."""
     if not incremental:
         raise ValueError(
             "fault injection requires the incremental protocol: the "
             "carried block aggregates are what faults corrupt and what "
             "repair heals (DESIGN.md §15)")
     dm = degraded or faults.DEFAULT_DEGRADED
+    s = _resolve_shards(problem, num_shards)
+    k = problem.num_machines
     impl = {"plain": _refine_distributed_faulty,
             "traced": _refine_distributed_traced_faulty,
             "sweep": _refine_distributed_simultaneous_faulty}[mode]
-    out = impl(problem, assignment, fault_plan, framework,
-               num_shards=num_shards, max_rounds=max_rounds, tol=tol,
-               cost_fn=cost_fn, degraded=dm, theta=theta,
-               measure_wire=measure_wire)
-    wire = out[-1] if measure_wire else None
-    core = out[:-1] if measure_wire else out
+    mw = measure_wire or recorder is not None
+    run = None
+    if recorder is not None:
+        run, _ = _open_run(recorder, _MODES[mode][0], problem, assignment,
+                           framework, theta, num_shards=s, incremental=True,
+                           faults=True)
+    t0 = time.perf_counter()
+    with _span(recorder, _MODES[mode][1], run):
+        out = impl(problem, assignment, fault_plan, framework,
+                   num_shards=s, max_rounds=max_rounds, tol=tol,
+                   cost_fn=cost_fn, degraded=dm, theta=theta,
+                   measure_wire=mw)
+        rounds = int(out[0].num_turns)                          # host sync
+    wall = time.perf_counter() - t0
+    wire = out[-1] if mw else None
+    core = out[:-1] if mw else out
     result, outcome = core[0], core[-1]
     extras = core[1:2] if mode != "plain" else ()
-    report = faults.build_report(fault_plan, outcome, int(result.num_turns),
+    report = faults.build_report(fault_plan, outcome, rounds,
                                  budget=dm.repair_tol,
                                  raise_on_failure=False)
+    if recorder is not None:
+        _record_faulty(recorder, run, mode, problem, s, fault_plan, core,
+                       rounds, wire, report, wall)
     faults.raise_if_failed(report, budget=dm.repair_tol)
     if measure_wire:
         return (result, *extras, wire, report)
     return (result, *extras, report)
+
+
+def _record_faulty(recorder, run: str, mode: str, problem, s: int, plan,
+                   core, rounds: int, wire, report, wall: float) -> None:
+    """The events of a fault-injected emulated run: its faults (with the
+    traced and sweep drivers' per-round repair side outputs), its turns
+    or sweeps, the reconciled wire and the recover-or-raise verdict."""
+    k = problem.num_machines
+    result = core[0]
+    if mode == "plain":
+        faults.emit_fault_events(recorder, run, plan, rounds)
+    else:
+        ftrace = core[2]
+        faults.emit_fault_events(recorder, run, plan, rounds,
+                                 repair_drift=ftrace.repair_drift,
+                                 repaired_cols=ftrace.repaired_cols,
+                                 repaired=ftrace.repaired)
+    c0, ct0 = _record_moves(recorder, run, mode, problem,
+                            core[1] if mode != "plain" else None, rounds)
+    _record_wire(recorder, run, problem, s, wire, traced=mode == "traced",
+                 simultaneous=mode == "sweep", incremental=True,
+                 fault_extra=faults.plan_extra_bytes(
+                     plan, rounds, faults.message_bytes(
+                         traced=mode == "traced",
+                         simultaneous=mode == "sweep", num_machines=k)))
+    recorder.record_result(run, result, wall=wall, c0=c0, ct0=ct0,
+                           recovered=report.recovered,
+                           recovery_drift=report.recovery_drift)
+
+
+def _record_moves(recorder, run: str, mode: str, problem, outs,
+                  rounds: int):
+    """The ``turn`` (traced) or ``sweep`` events of a run from its trace
+    or per-sweep outputs ``outs``; returns its last potentials (``None``
+    for a plain run or one with no rounds)."""
+    if mode == "traced":
+        recorder.record_trace(run, outs, problem.node_weights,
+                              problem.num_machines)
+        c0s, ct0s = outs.c0, outs.ct0
+    elif mode == "sweep":
+        c0s, ct0s, active = outs
+        recorder.record_sweeps(run, c0s, ct0s, active)
+    if mode == "plain" or not rounds:
+        return None, None
+    return float(c0s[rounds - 1]), float(ct0s[rounds - 1])
+
+
+def _recorded(recorder, mode: str, problem, assignment, framework: str,
+              num_shards, theta, incremental: bool, driver):
+    """A fault-free emulated run under ``recorder``: ``run_start``, the
+    timed ``driver(s)`` (which measures its wire), its turns or sweeps,
+    the reconciled ``wire`` event and the closing drift + ``run_end``.
+    Returns the driver's output, its wire measurement last."""
+    s = _resolve_shards(problem, num_shards)
+    run, _ = _open_run(recorder, _MODES[mode][0], problem, assignment,
+                       framework, theta, num_shards=s,
+                       incremental=incremental)
+    t0 = time.perf_counter()
+    with recorder.phase(_MODES[mode][1], run):
+        out = driver(s)
+    wall = time.perf_counter() - t0
+    result, wire = out[0], out[-1]
+    c0, ct0 = _record_moves(recorder, run, mode, problem,
+                            out[1] if mode != "plain" else None,
+                            int(wire.rounds))
+    _record_wire(recorder, run, problem, s, wire, traced=mode == "traced",
+                 simultaneous=mode == "sweep", incremental=incremental)
+    recorder.record_result(run, result, wall=wall, c0=c0, ct0=ct0)
+    return out
 
 
 def refine_distributed(problem: PartitionProblem, assignment,
@@ -1224,18 +1397,31 @@ def refine_distributed(problem: PartitionProblem, assignment,
     (DESIGN.md §15): returns ``(result, report[, wire in between])`` with
     a :class:`faults.FaultReport` appended, raising ``DeadShardError`` /
     ``RecoveryFailedError`` when the run cannot recover to the drift
-    budget — never silently diverging.  ``recorder`` (telemetry) is not
-    ported yet and raises."""
-    _no_recorder(recorder)
+    budget — never silently diverging.
+
+    ``recorder`` (a :class:`repro_torch.obs.Recorder`) opts into run
+    telemetry: the run is phase-timed, its measured wire bytes are
+    reconciled against ``accounting.ledger_for_run``, and the stream
+    closes with drift + ``run_end`` events (a fault-injected run adds its
+    fault events and the recover-or-raise verdict).  ``recorder=None``
+    runs exactly the recorder-free driver."""
     if fault_plan is not None:
         return _run_faulty_emulated(
             "plain", problem, assignment, fault_plan, framework,
             num_shards, max_turns, tol, cost_fn, incremental, theta,
-            degraded, measure_wire)
-    return _refine_distributed(
-        problem, assignment, framework, num_shards=num_shards,
-        max_turns=max_turns, tol=tol, cost_fn=cost_fn,
-        incremental=incremental, theta=theta, measure_wire=measure_wire)
+            degraded, measure_wire, recorder)
+    kwargs = dict(max_turns=max_turns, tol=tol, cost_fn=cost_fn,
+                  incremental=incremental, theta=theta)
+    if recorder is None:
+        return _refine_distributed(problem, assignment, framework,
+                                   num_shards=num_shards,
+                                   measure_wire=measure_wire, **kwargs)
+    out = _recorded(recorder, "plain", problem, assignment, framework,
+                    num_shards, theta, incremental,
+                    lambda s: _refine_distributed(
+                        problem, assignment, framework, num_shards=s,
+                        measure_wire=True, **kwargs))
+    return out if measure_wire else out[0]
 
 
 def refine_distributed_traced(problem: PartitionProblem, assignment,
@@ -1252,17 +1438,28 @@ def refine_distributed_traced(problem: PartitionProblem, assignment,
     :func:`_refine_distributed_traced`): ``(result, trace)``, ``(result,
     trace, wire)`` with ``measure_wire``.  ``fault_plan`` as in
     :func:`refine_distributed` — the return tuple gains a trailing
-    :class:`faults.FaultReport`."""
-    _no_recorder(recorder)
+    :class:`faults.FaultReport`.  ``recorder`` as in
+    :func:`refine_distributed`, plus one ``turn`` event per active turn
+    (from the returned trace; the carried exact-potential values ride
+    along)."""
     if fault_plan is not None:
         return _run_faulty_emulated(
             "traced", problem, assignment, fault_plan, framework,
             num_shards, max_turns, tol, cost_fn, incremental, theta,
-            degraded, measure_wire)
-    return _refine_distributed_traced(
-        problem, assignment, framework, num_shards=num_shards,
-        max_turns=max_turns, tol=tol, cost_fn=cost_fn,
-        incremental=incremental, theta=theta, measure_wire=measure_wire)
+            degraded, measure_wire, recorder)
+    kwargs = dict(max_turns=max_turns, tol=tol, cost_fn=cost_fn,
+                  incremental=incremental, theta=theta)
+    if recorder is None:
+        return _refine_distributed_traced(problem, assignment, framework,
+                                          num_shards=num_shards,
+                                          measure_wire=measure_wire,
+                                          **kwargs)
+    out = _recorded(recorder, "traced", problem, assignment, framework,
+                    num_shards, theta, incremental,
+                    lambda s: _refine_distributed_traced(
+                        problem, assignment, framework, num_shards=s,
+                        measure_wire=True, **kwargs))
+    return out if measure_wire else out[:2]
 
 
 def refine_distributed_simultaneous(problem: PartitionProblem, assignment,
@@ -1278,14 +1475,23 @@ def refine_distributed_simultaneous(problem: PartitionProblem, assignment,
     """Distributed §4.5 sweeps (see
     :func:`_refine_distributed_simultaneous`): ``(result, (c0s, ct0s,
     active))`` (+ wire).  ``fault_plan`` as in :func:`refine_distributed`
-    — the return tuple gains a trailing :class:`faults.FaultReport`."""
-    _no_recorder(recorder)
+    — the return tuple gains a trailing :class:`faults.FaultReport`.
+    ``recorder`` as in :func:`refine_distributed`, plus one ``sweep``
+    event per active sweep."""
     if fault_plan is not None:
         return _run_faulty_emulated(
             "sweep", problem, assignment, fault_plan, framework,
             num_shards, max_sweeps, tol, cost_fn, incremental, theta,
-            degraded, measure_wire)
-    return _refine_distributed_simultaneous(
-        problem, assignment, framework, num_shards=num_shards,
-        max_sweeps=max_sweeps, tol=tol, cost_fn=cost_fn,
-        incremental=incremental, theta=theta, measure_wire=measure_wire)
+            degraded, measure_wire, recorder)
+    kwargs = dict(max_sweeps=max_sweeps, tol=tol, cost_fn=cost_fn,
+                  incremental=incremental, theta=theta)
+    if recorder is None:
+        return _refine_distributed_simultaneous(
+            problem, assignment, framework, num_shards=num_shards,
+            measure_wire=measure_wire, **kwargs)
+    out = _recorded(recorder, "sweep", problem, assignment, framework,
+                    num_shards, theta, incremental,
+                    lambda s: _refine_distributed_simultaneous(
+                        problem, assignment, framework, num_shards=s,
+                        measure_wire=True, **kwargs))
+    return out if measure_wire else out[:2]

@@ -136,20 +136,25 @@ class BoundaryStats:
 
 
 def boundary_stats(problem: PartitionProblem, num_shards: int) -> BoundaryStats:
-    """Compute the ghost/boundary structure of a static contiguous sharding."""
-    adj = problem.adjacency.detach().cpu().numpy() > 0
+    """Compute the ghost/boundary structure of a static contiguous sharding.
+
+    Counted on the adjacency's device, one (Ns, N) row block at a time,
+    and read back in one (S, 3) transfer."""
+    adj = problem.adjacency.detach()
     n = adj.shape[0]
     ns = -(-n // num_shards)
-    shard_of = np.minimum(np.arange(n) // ns, num_shards - 1)
-    boundary = np.zeros(num_shards, np.int64)
-    ghosts = np.zeros(num_shards, np.int64)
-    cross = np.zeros(num_shards, np.int64)
+    cols = torch.arange(n, device=adj.device)
+    counts = []
     for s in range(num_shards):
-        mine = shard_of == s
-        out_edges = adj[mine][:, ~mine]
-        boundary[s] = int(np.sum(out_edges.any(axis=1)))
-        ghosts[s] = int(np.sum(adj[mine].any(axis=0) & ~mine))
-        cross[s] = int(out_edges.sum())
+        block = adj[s * ns:(s + 1) * ns] > 0
+        off = (cols < s * ns) | (cols >= (s + 1) * ns)
+        out_edges = block & off
+        counts.append(torch.stack([torch.sum(out_edges.any(dim=1)),
+                                   torch.sum(block.any(dim=0) & off),
+                                   torch.sum(out_edges)]))
+    boundary, ghosts, cross = torch.stack(counts).cpu().numpy() \
+        .astype(np.int64).T
     return BoundaryStats(num_shards=num_shards, num_nodes=n,
-                         boundary_nodes=boundary, ghost_nodes=ghosts,
-                         cross_edges=cross)
+                         boundary_nodes=np.ascontiguousarray(boundary),
+                         ghost_nodes=np.ascontiguousarray(ghosts),
+                         cross_edges=np.ascontiguousarray(cross))

@@ -91,6 +91,30 @@ def make_aggregate_dissat_fn() -> DissatFn:
     return fn
 
 
+def make_timed_dissat_fn(dissat_fn: DissatFn, recorder,
+                         name: str = "kernels.dissat") -> DissatFn:
+    """Wrap a ``dissat_fn`` with recorder phase timing (DESIGN.md §14.3).
+
+    Every call is wall-clocked: ``recorder.phase(name)`` around the call
+    and, when its output lies on the card, a ``torch.cuda.synchronize()``
+    inside the span, so the span covers device execution, not just the
+    launch.  That sync (one a call) is the price of timing each call, and
+    this opt-in wrapper is the only place it is paid.  Follows the same
+    9-argument convention as the wrapped callable, so it plugs into
+    :func:`repro_torch.core.refine.refine(..., dissat_fn=...)
+    <repro_torch.core.refine.refine>` anywhere the original does; the
+    outputs are the wrapped function's, untouched.
+    """
+    def fn(*args, **kwargs):
+        with recorder.phase(name):
+            out = dissat_fn(*args, **kwargs)
+            if any(isinstance(x, torch.Tensor) and _on_card(x)
+                   for x in out):
+                torch.cuda.synchronize()
+        return out
+    return fn
+
+
 def dissatisfaction_from_aggregate_batched(aggregate, row_assignment,
                                            node_weights, loads, speeds, mu,
                                            total_weight,

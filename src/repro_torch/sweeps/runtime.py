@@ -24,7 +24,7 @@ from ..core.batch import (problem_shape_key, refine_batched,
                           refine_traced_batched, stack_problems,
                           unstack_pytree)
 from ..core.problem import PartitionProblem, as_assignment
-from ..core.refine import DEFAULT_TOL, RefineResult, Trace, _no_recorder
+from ..core.refine import DEFAULT_TOL, RefineResult, Trace
 from . import metrics
 
 MODES = ("refine", "traced", "simultaneous", "multimove")
@@ -151,48 +151,85 @@ def run_sweep(spec: SweepSpec, recorder=None) -> "SweepResult":
     everything else — adjacency or edge list, weights, speeds, mu, theta
     values, initial assignments — varies freely inside a group.  Returns
     a :class:`SweepResult` with per-case results and traces in the order
-    of ``spec.cases``.  ``recorder`` (run telemetry) is not ported yet
-    and must be ``None``.
+    of ``spec.cases``.
+
+    ``recorder`` (a :class:`repro_torch.obs.Recorder`, DESIGN.md §14)
+    opts into telemetry: each group's run is a timed ``phase`` span
+    (ending in a device sync, so it covers the card's work), every case
+    closes with one ``element`` event (its headline summary stats),
+    traced-mode cases additionally stream their per-turn events tagged
+    with the case index, and the run ends with fleet totals.
+    ``recorder=None`` runs the identical batched runs.
     """
-    _no_recorder(recorder)
+    ncases = len(spec.cases)
     groups: dict[tuple, list[int]] = {}
     for i, case in enumerate(spec.cases):
         groups.setdefault(_group_key(case), []).append(i)
 
-    results: list = [None] * len(spec.cases)
-    traces: list = [None] * len(spec.cases)
+    run = None
+    if recorder is not None:
+        run = recorder.new_run("sweep", mode=spec.mode, cases=ncases,
+                               groups=len(groups),
+                               use_kernel=spec.use_kernel)
+
+    results: list = [None] * ncases
+    traces: list = [None] * ncases
     for key, idxs in groups.items():
         cases = [spec.cases[i] for i in idxs]
         problems, r0, theta = _stack_group(cases)
         framework = key[0]
-        tr = None
-        if spec.mode == "refine":
-            out = refine_batched(problems, r0, framework,
-                                 max_turns=spec.max_turns, tol=spec.tol,
-                                 theta=theta)
-        elif spec.mode == "traced":
-            out, tr = refine_traced_batched(problems, r0, framework,
-                                            max_turns=spec.max_turns,
-                                            tol=spec.tol, theta=theta)
-        elif spec.mode == "multimove":
-            gens = None
-            if spec.move_prob < 1.0:
-                gens = [case_generator(spec.seed, i, problems.device)
-                        for i in idxs]
-            out, tr = refine_sweeps_batched(
-                problems, r0, framework, max_sweeps=spec.max_turns,
-                tol=spec.tol, theta=theta,
-                moves_per_machine=spec.moves_per_machine,
-                move_prob=spec.move_prob, epsilon=spec.epsilon,
-                generators=gens)
+        if recorder is None:
+            out, tr = _run_group(spec, idxs, problems, r0, theta, framework)
         else:
-            out, tr = refine_simultaneous_batched(
-                problems, r0, framework, max_sweeps=spec.max_turns,
-                tol=spec.tol, theta=theta)
+            n, k = cases[0].problem.num_nodes, cases[0].problem.num_machines
+            label = f"sweep.{spec.mode}[{framework} n={n} k={k} B={len(idxs)}]"
+            with recorder.phase(label, run):
+                out, tr = _run_group(spec, idxs, problems, r0, theta,
+                                     framework)
+                if problems.device.type == "cuda":
+                    torch.cuda.synchronize()
         for j, i in enumerate(idxs):
             results[i] = unstack_pytree(out, j)
             traces[i] = None if tr is None else unstack_pytree(tr, j)
-    return SweepResult(spec=spec, results=results, traces=traces)
+    result = SweepResult(spec=spec, results=results, traces=traces)
+    if recorder is not None:
+        if spec.mode == "traced":
+            for i, (case, tr) in enumerate(zip(spec.cases, traces)):
+                recorder.record_trace(run, tr, case.problem.node_weights,
+                                      case.problem.num_machines, batch=i)
+        for i, row in enumerate(result.summary()):
+            recorder.emit("element", run, batch=i, **row)
+        recorder.emit("run_end", run,
+                      num_moves=int(result.moves.sum()),
+                      num_turns=int(result.turns.max()) if ncases else 0,
+                      converged=bool(result.converged.all()))
+    return result
+
+
+def _run_group(spec: SweepSpec, idxs: list[int], problems, r0, theta,
+               framework: str):
+    """One group's batched run: ``(result, per-case outputs or None)``."""
+    if spec.mode == "refine":
+        return refine_batched(problems, r0, framework,
+                              max_turns=spec.max_turns, tol=spec.tol,
+                              theta=theta), None
+    if spec.mode == "traced":
+        return refine_traced_batched(problems, r0, framework,
+                                     max_turns=spec.max_turns, tol=spec.tol,
+                                     theta=theta)
+    if spec.mode == "multimove":
+        gens = None
+        if spec.move_prob < 1.0:
+            gens = [case_generator(spec.seed, i, problems.device)
+                    for i in idxs]
+        return refine_sweeps_batched(
+            problems, r0, framework, max_sweeps=spec.max_turns,
+            tol=spec.tol, theta=theta,
+            moves_per_machine=spec.moves_per_machine,
+            move_prob=spec.move_prob, epsilon=spec.epsilon, generators=gens)
+    return refine_simultaneous_batched(problems, r0, framework,
+                                       max_sweeps=spec.max_turns,
+                                       tol=spec.tol, theta=theta)
 
 
 def _np(x) -> np.ndarray:

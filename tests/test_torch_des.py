@@ -390,10 +390,22 @@ def test_unported_options_raise():
     with pytest.raises(ValueError, match="refine_backend"):
         P.run_simulation(dataclasses.replace(pcfg, refine_backend="x"),
                          adj, ps)
-    with pytest.raises(NotImplementedError, match="telemetry"):
-        P.run_simulation(pcfg, adj, ps, recorder=object())
-    with pytest.raises(NotImplementedError, match="telemetry"):
-        P.run_simulation_batch(pcfg, adj[None], stack_pytrees([ps]),
-                               recorder=object())
-    with pytest.raises(NotImplementedError, match="telemetry"):
-        P.des_tick(pcfg, adj, ps, emit_tick=print)
+    # telemetry is ported: each entry point takes its hooks and returns
+    # the hook-free state
+    from repro_torch.obs import Recorder
+    rec = Recorder()
+    small = dataclasses.replace(pcfg, max_ticks=40)
+    out = P.run_simulation(small, adj, ps, recorder=rec)
+    _assert_same(P.run_simulation(small, adj, ps), out)
+    assert [e["kind"] for e in rec.events][-1] == "run_end"
+    assert sum(e["kind"] == "tick" for e in rec.events) == \
+        40 // pcfg.trace_stride
+    fleet = P.run_simulation_batch(small, adj[None], stack_pytrees([ps]),
+                                   recorder=rec)
+    _assert_same(out, unstack_pytree(fleet, 0))
+    assert sum(e["kind"] == "element" for e in rec.events) == 1
+    rows = []
+    s = ps
+    for _ in range(pcfg.trace_stride):
+        s = P.des_tick(pcfg, adj, s, emit_tick=lambda *r: rows.append(r))
+    assert len(rows) == 1 and int(rows[0][0]) == pcfg.trace_stride

@@ -293,8 +293,12 @@ def test_unknown_cost_fn_raises(pair):
     with pytest.raises(ValueError, match="cost_fn"):
         PD.refine_distributed(prob, r0, "c", incremental=False,
                               cost_fn="typo")
-    with pytest.raises(NotImplementedError, match="telemetry"):
-        PD.refine_distributed(prob, r0, "c", recorder=object())
+    # run telemetry is ported: a recorder gets the run's reconciled wire
+    from repro_torch.obs import Recorder
+    rec = Recorder()
+    PD.refine_distributed(prob, r0, "c", recorder=rec)
+    wire = [e for e in rec.events if e["kind"] == "wire"]
+    assert len(wire) == 1 and wire[0]["ok"]
 
 
 # ---------------------------------------------------------------------------

@@ -151,8 +151,15 @@ def test_error_types_and_reports():
                            raise_on_failure=False)
     with pytest.raises(PD.DeadShardError):
         PF.raise_if_failed(dead)
-    with pytest.raises(NotImplementedError, match="telemetry"):
-        PF.emit_fault_events(None, "run", plan, 5)
+    # fault telemetry is ported: a clear plan emits nothing, a faulty one
+    # its faults
+    from repro_torch.obs import Recorder
+    rec = Recorder()
+    PF.emit_fault_events(rec, "run", plan, 5)
+    assert rec.events == []
+    PF.emit_fault_events(rec, "run", _plans(0)[1], PLAN_ROUNDS)
+    assert {e["kind"] for e in rec.events} >= {"fault_injected",
+                                               "exchange_retry"}
 
 
 # ---------------------------------------------------------------------------

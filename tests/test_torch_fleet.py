@@ -168,9 +168,18 @@ def test_sweep_spec_validation_matches_reference(kwargs):
 
 
 def test_run_sweep_rejects_recorder():
+    """``run_sweep`` takes a recorder (run telemetry): one timed phase a
+    group, one ``element`` event a case, the recorder-free results."""
+    from repro_torch.obs import Recorder
     spec = sweeps.make_spec(_cases(2), mode="refine", use_kernel=True)
-    with pytest.raises(NotImplementedError, match="telemetry"):
-        sweeps.run_sweep(spec, recorder=object())
+    rec = Recorder()
+    out = sweeps.run_sweep(spec, recorder=rec)
+    base = sweeps.run_sweep(spec)
+    assert (out.assignments == base.assignments).all()
+    assert (out.moves == base.moves).all()
+    kinds = [e["kind"] for e in rec.events]
+    assert kinds.count("phase") == 2 and kinds.count("element") == 2
+    assert kinds[-1] == "run_end"
 
 
 def test_metrics_are_the_references():

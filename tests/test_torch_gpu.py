@@ -1011,3 +1011,130 @@ def test_distributed_collective_nccl_group_of_one(card):
     assert D.launches["dissat_from_aggregate_batched"] == 0
     _same_result(want, got)
     assert wire.payload_bytes == 16 * int(got.num_turns)
+
+
+@pytest.mark.gpu
+def test_recorder_on_paths_bitwise_recorder_off(card):
+    """On the card, every runtime under a recorder returns its
+    recorder-free result bitwise, and records its run (n=512)."""
+    from repro_torch import distributed as PD
+    from repro_torch.core.refine import refine, refine_sweeps, refine_traced
+    from repro_torch.des import engine
+    from repro_torch.obs import Recorder
+    from repro_torch.obs.report import check_run, replay_run
+    prob, r0 = _dist_problem(card, n=512)
+    for framework in ("c", "ct"):
+        rec = Recorder()
+        got = refine(prob, r0, framework, recorder=rec)
+        _same_result(refine(prob, r0, framework), got)
+        assert sum(e["kind"] == "turn" for e in rec.events) == int(
+            got.num_turns)
+        if framework == "c":
+            assert check_run(replay_run(rec.events)) == []
+        want, wtr = refine_traced(prob, r0, framework, max_turns=256)
+        got, gtr = refine_traced(prob, r0, framework, max_turns=256,
+                                 recorder=Recorder())
+        _same_result(want, got)
+        assert all(torch.equal(a, b) for a, b in zip(wtr, gtr))
+        want, wout = refine_sweeps(prob, r0, framework, max_sweeps=32)
+        got, gout = refine_sweeps(prob, r0, framework, max_sweeps=32,
+                                  recorder=Recorder())
+        _same_result(want, got)
+        assert all(torch.equal(a, b) for a, b in zip(wout, gout))
+        rec = Recorder()
+        got = PD.refine_distributed(prob, r0, framework, num_shards=8,
+                                    recorder=rec)
+        _same_result(PD.refine_distributed(prob, r0, framework,
+                                           num_shards=8), got)
+        assert [e for e in rec.events if e["kind"] == "wire"][0]["ok"]
+    cfg, adj, state, churn = _des_instance(card, 1100)
+    rec = Recorder()
+    got = engine.run_simulation(cfg, adj, state, churn, recorder=rec)
+    want = engine.run_simulation(cfg, adj, state, churn)
+    assert int(got.refines) >= 4
+    assert _smoke().des_differ(got, want) == []
+    assert sum(e["kind"] == "des_refine" for e in rec.events) == int(
+        got.refines)
+
+
+def _des_events(engine, cfg, adj, state, churn, graph_ticks):
+    """A recorded lone run with CUDA graphs of ``graph_ticks`` ticks (0:
+    eager): (final state, its events without the timed fields)."""
+    from repro_torch.obs import Recorder
+    rec = Recorder()
+    final = engine._run_lone(cfg, adj, state, churn, None, graph_ticks,
+                             recorder=rec)
+    return final, [{k: v for k, v in e.items()
+                    if k not in ("ts", "dur", "wall")}
+                   for e in rec.events if e["kind"] != "phase"]
+
+
+@pytest.mark.gpu
+def test_des_graph_replayed_tick_rows_equal_eager(card):
+    """The tick rows the CUDA graphs' captured steps write equal the rows
+    eager ticks write, refinement rows and final counters too."""
+    from repro_torch.des import engine
+    cfg, adj, state, churn = _des_instance(card, 1100)
+    graphed = _des_events(engine, cfg, adj, state, churn, 16)
+    eager = _des_events(engine, cfg, adj, state, churn, 0)
+    assert _smoke().des_differ(graphed[0], eager[0]) == []
+    ticks = [e for e in graphed[1] if e["kind"] == "tick"]
+    assert len(ticks) == 1100 // cfg.trace_stride
+    assert sum(e["kind"] == "des_refine" for e in graphed[1]) >= 4
+    assert graphed[1] == eager[1]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("start", ["stride 1", "a tick before the stride"])
+def test_des_graph_warm_up_writes_no_tick_row(card, start):
+    """The graph's warm-up tick is not one of the run's: where it lands
+    on the ``trace_stride`` cadence — every tick at stride 1, or the first
+    tick of a run resumed one tick before the cadence — the replayed run
+    still writes each tick's row once, as the eager run does."""
+    import dataclasses
+    from repro_torch.des import engine
+    cfg, adj, state, churn = _des_instance(card, 600)
+    if start == "stride 1":
+        cfg = dataclasses.replace(cfg, trace_stride=1)
+    else:
+        state = engine._run_lone(
+            dataclasses.replace(cfg, max_ticks=cfg.trace_stride - 1), adj,
+            state, churn, None, 0)
+        assert int(state.tick) == cfg.trace_stride - 1
+    graphed = _des_events(engine, cfg, adj, state, churn, 16)
+    eager = _des_events(engine, cfg, adj, state, churn, 0)
+    assert _smoke().des_differ(graphed[0], eager[0]) == []
+    ticks = [e["t"] for e in graphed[1] if e["kind"] == "tick"]
+    assert ticks and len(ticks) == len(set(ticks))
+    assert graphed[1] == eager[1]
+
+
+@pytest.mark.gpu
+def test_recorder_adds_only_its_reads_of_the_card(card):
+    """Host syncs (``torch.cuda.set_sync_debug_mode``): ``refine`` under
+    a recorder makes at most two more than without (its reads of the
+    replay seed before the loop and of the rows and the result after
+    it), the DES at most one more (its rows and counters at the end) —
+    none a turn or a tick."""
+    from repro_torch.core.refine import refine
+    from repro_torch.des import engine
+    from repro_torch.obs import Recorder
+    smoke = _smoke()
+    prob, r0 = _dist_problem(card, n=512)
+    refine(prob, r0, "c")
+    off, _, n_off, where_off = smoke.count_syncs(
+        lambda: refine(prob, r0, "c"))
+    on, _, n_on, where_on = smoke.count_syncs(
+        lambda: refine(prob, r0, "c", recorder=Recorder()))
+    _same_result(off, on)
+    extra = where_on - where_off
+    assert n_off > 0 and sum(extra.values()) <= 2
+    assert all(where.startswith("rows.py:") for where in extra)
+    cfg, adj, state, churn = _des_instance(card, 1100)
+    adj = torch.as_tensor(adj, device=card)
+    _, _, n_off, _ = smoke.count_syncs(
+        lambda: engine.run_simulation(cfg, adj, state, churn))
+    _, _, n_on, _ = smoke.count_syncs(
+        lambda: engine.run_simulation(cfg, adj, state, churn,
+                                      recorder=Recorder()))
+    assert n_off > 0 and 0 <= n_on - n_off <= 1

@@ -34,14 +34,14 @@ def test_port_imports_no_jax_and_no_reference():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     report = json.loads(out.stdout.strip().splitlines()[-1])
-    assert report["modules"] >= 60
+    assert report["modules"] >= 72
     assert report["imported"] == []
 
 
 def test_every_port_module_is_listed():
     """The probe above walks the package; make sure the walk sees the
-    kernel, core, model, serving, launch, partitioner, DES and distributed
-    modules the slices ship."""
+    kernel, core, model, serving, launch, partitioner, DES, distributed
+    and telemetry modules the slices ship."""
     names = {m.name for m in pkgutil.walk_packages(
         [str(REPO / "src" / "repro_torch")], "repro_torch.")}
     for mod in ("core.problem", "core.costs", "core.aggregate",
@@ -66,7 +66,9 @@ def test_every_port_module_is_listed():
                 "des.engine", "des.scenarios", "des.workload",
                 "des_partitioning", "distributed", "distributed.views",
                 "distributed.protocol", "distributed.accounting",
-                "distributed.faults", "distributed.runtime"):
+                "distributed.faults", "distributed.runtime", "obs",
+                "obs.events", "obs.sinks", "obs.recorder", "obs.report",
+                "obs.rows"):
         assert f"repro_torch.{mod}" in names
 
 
@@ -99,6 +101,23 @@ def test_distributed_exports_the_reference_names():
     sys.path.insert(0, str(REPO / "src"))
     import repro_torch.distributed as port
     assert len(want) == 21
+    assert sorted(port.__all__) == sorted(want)
+    for name in want:
+        assert hasattr(port, name), name
+
+
+def test_obs_exports_the_reference_names():
+    """``repro_torch.obs`` exports the reference's 8 public names."""
+    import ast
+    tree = ast.parse((REPO / "src" / "repro" / "obs"
+                      / "__init__.py").read_text())
+    want = next(node.value for node in tree.body
+                if isinstance(node, ast.Assign)
+                and node.targets[0].id == "__all__")
+    want = [elt.value for elt in want.elts]
+    sys.path.insert(0, str(REPO / "src"))
+    import repro_torch.obs as port
+    assert len(want) == 8
     assert sorted(port.__all__) == sorted(want)
     for name in want:
         assert hasattr(port, name), name

@@ -225,10 +225,18 @@ def test_potentials_match_reference(pair):
 
 
 def test_refine_rejects_what_is_not_ported(pair):
-    """Telemetry belongs to a later slice of the port; an object that is
+    """``refine`` takes a recorder (run telemetry) and returns the
+    recorder-free result, one ``turn`` event a turn; an object that is
     neither kind of problem is refused with a TypeError."""
+    from repro_torch.obs import Recorder
     _, port, r0 = pair
-    with pytest.raises(NotImplementedError, match="telemetry"):
-        refine(port, r0, "c", recorder=object())
+    rec = Recorder()
+    res = refine(port, r0, "c", recorder=rec)
+    base = refine(port, r0, "c")
+    assert all(torch.equal(torch.as_tensor(a), torch.as_tensor(b))
+               for a, b in zip(res, base))
+    kinds = [e["kind"] for e in rec.events]
+    assert kinds[0] == "run_start" and kinds[-1] == "run_end"
+    assert kinds.count("turn") == int(res.num_turns)
     with pytest.raises(TypeError, match="PartitionProblem or a SparseProblem"):
         refine(object(), r0, "c")
