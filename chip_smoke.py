@@ -7,8 +7,10 @@ dense LM serving path (qwen1.5-4b at full width, 48 requests through the
 continuous-batching engine), the SSM serving path (mamba2-1.3b at full
 width, the same traffic) and the paper's Time-Warp DES with periodic
 refinement (N=2048, K=16; a fleet of 8 at N=1024), the distributed
-refinement runtime with its faults (16 shards of the dense instance) and
-run telemetry on those paths, times every kernel, and checks the results.
+refinement runtime with its faults (16 shards of the dense instance),
+run telemetry on those paths, and the MoE and hybrid serving paths
+(granite-moe-1b-a400m and zamba2-7b at full width, the same traffic),
+times every kernel, and checks the results.
 
   python3 chip_smoke.py          # needs one CUDA card and nvcc
 
@@ -184,6 +186,30 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      recorder, bitwise, its ``wire`` event ok with measured bytes equal to
      the ledger's; a fault-injected traced run (the mixed plan) bitwise
      its recorder-free run, closing ``recovered=True``, ``--check``.
+ 24. full-width MoE serving — granite-moe-1b-a400m's published config (24
+     layers, d_model 1024, 16 heads and 8 KV heads of 64, 32 experts of
+     d_ff 512 with top-8 routing in groups of 512 at capacity 1.25, vocab
+     49155, tied embeddings, f32 parameters, bf16 compute), phase 14's
+     ``ServeConfig`` and traffic: (a) every request complete, every logit
+     finite, kernel 7 launched 24 x 48 times, kernel 6 24 x decode steps,
+     no twin; prefill tokens/s, ms per decode step, generated tok/s, a
+     profiled window of 8 decode steps; (b) layer 0's MoE block on the MoE
+     input of a 3072-token prompt at f32: scatter at capacity 8.0 against
+     the dense oracle, scatter against einsum at 1.25 with the dropped
+     pairs counted, ``expert_load`` summing to top_k, ``coactivation``
+     symmetric with a zero diagonal; the bf16 block's time and device
+     kernels at the prefill and decode shapes; (c) phase 15's f32 parity
+     (2 slots, prompts of 500 and 900 tokens, 16 new tokens: equal tokens,
+     logits within tolerance) with the smallest top-8 routing margin seen;
+ 25. full-width hybrid serving — zamba2-7b's published config (81 Mamba2
+     layers, d_model 3584, 112 SSM heads of 64, state 64, chunk 256; one
+     shared attention+MLP block, 32 heads of 112, d_ff 14336, applied
+     after every 6th layer, 13 times; vocab 32000, bf16 parameters and
+     compute), the same traffic: (a) kernel 8 launched 81 x 48 times,
+     kernel 7 13 x 48 and kernel 6 13 x decode steps, no twin; the serving
+     metrics and a profiled window; (b) kernel 8 against its twin at (1,
+     3072, 112, 64, 64) in bf16 within ``SSD_TOL``, and its time; (c) the
+     f32 parity of the kernel path (kernels 6-8) and the plain path.
 
 Each path's launch counts are set to 0 just before it and read just after.
 The line before the last two is the kernels' JSON record; then the card's
@@ -254,9 +280,11 @@ PARITY_NEW = 16
 PARITY_MAX_LEN = 1024
 # (B, H, Hkv, D, S) and (B, S, H, Hkv, D) of phase 13; head_dim 112 is
 # zamba2-7b's, 96 is not a power of two and 100 not a multiple of 8 (the
-# bf16 kernel 7 then pads it)
+# bf16 kernel 7 then pads it); G = 2 at D = 64 is granite-moe-1b-a400m's
+# serving shape
 DECODE_SHAPES = ((16, 20, 20, 128, 4096), (4, 32, 8, 128, 1000),
-                 (3, 8, 1, 64, 777), (16, 32, 32, 112, 4096))
+                 (3, 8, 1, 64, 777), (16, 32, 32, 112, 4096),
+                 (16, 16, 8, 64, 4096))
 # kernel 6's split-S cases of phase 13, (B, H, Hkv, D, S): G = 7 (yi-34b's
 # head layout), G = 8 at zamba2-7b's D = 112, G = 48 (granite-34b's: each
 # warp keeps several (row, part) states in shared memory), and D = 100 (no
@@ -268,7 +296,8 @@ DECODE_SPLIT_SHAPES = ((8, 56, 8, 128, 4096), (4, 64, 8, 112, 1500),
 DECODE_GQA_SHAPE = (16, 56, 8, 128, 4096)
 FLASH_SHAPES = ((1, 3072, 20, 20, 128), (2, 1000, 32, 8, 128),
                 (1, 333, 8, 1, 64), (1, 3072, 32, 32, 112),
-                (2, 1000, 32, 8, 96), (1, 130, 14, 2, 100))
+                (2, 1000, 32, 8, 96), (1, 130, 14, 2, 100),
+                (1, 3072, 16, 8, 64))
 # kernel vs twin, |diff| <= atol + rtol * |want|: f32 sums the same
 # products in another order; bf16 adds one rounding of the output (2^-7
 # relative at most)
@@ -346,6 +375,17 @@ ANNEAL_N = 4096
 ANNEAL_K = 16
 ANNEAL_STEPS = 2048
 ANNEAL_TRACE_TURNS = 512
+
+# phases 24-25: the MoE and hybrid families at their published widths,
+# phase 14's ServeConfig and traffic
+MOE_ARCH = "granite-moe-1b-a400m"
+HYBRID_ARCH = "zamba2-7b"
+# one MoE block's impls against each other at f32 compute: max |diff| <=
+# MOE_TOL * max(1, max |want|) (the reference's own tolerance between
+# them, tests/test_models.py); the same routing code, so the statistics
+# are equal
+MOE_TOL = 1e-4
+MOE_TIMED_ITERS = 10
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s, f32 FLOP/s
 # outside the tensor cores, dense bf16 FLOP/s on the tensor cores
@@ -1762,8 +1802,8 @@ class FiniteGreedy:
 
 
 def _serve_full_width(cfg, mods, card):
-    """Phases 14 and 18: ``cfg`` at full width, random weights from a
-    seeded generator on the card, serving the 48 requests of
+    """Phases 14, 18, 24 and 25: ``cfg`` at full width, random weights
+    from a seeded generator on the card, serving the 48 requests of
     ``_request_prompts`` through the port's ServingEngine with the launch
     counts of ``mods`` set to 0 just before the run.  Checks that every
     request has its tokens and every logit was finite; returns (params,
@@ -1777,11 +1817,13 @@ def _serve_full_width(cfg, mods, card):
         SEED))
     torch.cuda.synchronize()
     n_params = param_count(params)
+    want = cfg.param_count() + cfg.shared_block_params()
+    elt = torch.finfo(cfg.pdtype()).bits // 8
     log(f"  init_params on the card (seed {SEED}): {n_params} parameters "
-        f"({4 * n_params / 1e9:.2f} GB f32) in "
+        f"({elt * n_params / 1e9:.2f} GB {cfg.param_dtype}) in "
         f"{time.perf_counter() - t0:.2f} s")
-    if n_params != cfg.param_count():
-        fail(f"{n_params} parameters, the config counts {cfg.param_count()}")
+    if n_params != want:
+        fail(f"{n_params} parameters, the config counts {want}")
     serve = ServeConfig(max_batch=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
                         cache_dtype="bfloat16")
     sampler = FiniteGreedy()
@@ -1827,6 +1869,14 @@ def _serve_full_width(cfg, mods, card):
     return params, engine, stats, launches, twins
 
 
+def _check_serving_launches(launches, twins, want):
+    for name, n in want.items():
+        if launches[name] != n:
+            fail(f"kernel {name} launched {launches[name]} times, want {n}")
+    if any(twins.values()):
+        fail(f"a twin ran on the serving path: {twins}")
+
+
 def _profile_decode(engine):
     """A profiled window of decode steps at full occupancy: every slot
     gets a request that continues from the slot's cache as the run left
@@ -1866,13 +1916,9 @@ def phase_serving(A, F, card):
     params, engine, stats, launches, twins = _serve_full_width(
         cfg, (A, F), card)
     steps = stats["decode_steps"]
-    want = {"flash_attention": cfg.num_layers * SERVE_REQUESTS,
-            "decode_attention": cfg.num_layers * steps}
-    for name, n in want.items():
-        if launches[name] != n:
-            fail(f"kernel {name} launched {launches[name]} times, want {n}")
-    if any(twins.values()):
-        fail(f"a twin ran on the serving path: {twins}")
+    _check_serving_launches(launches, twins, {
+        "flash_attention": cfg.num_layers * SERVE_REQUESTS,
+        "decode_attention": cfg.num_layers * steps})
     log(f"  checks: every request has {SERVE_NEW} tokens, every logit "
         f"finite, kernel 7 launched {cfg.num_layers} x {SERVE_REQUESTS} and "
         f"kernel 6 {cfg.num_layers} x {steps} times, no twin ran")
@@ -1914,10 +1960,16 @@ def phase_paths(params, engine):
     return {"bf16_rel": rel, "bf16_argmax_equal": agree, "f32_rel": rel32}
 
 
-def _f32_parity(params, cfg, switch: str) -> float:
-    """Phases 15 and 19: f32 compute, the same weights, two requests
-    through a 2-slot engine on the kernel path and on the plain path
-    (``switch`` names the engine's argument that selects it): tokens
+def _parity_prompts(vocab: int):
+    rng = np.random.default_rng(SEED + 1)
+    return [rng.integers(0, vocab, n).astype(np.int32)
+            for n in PARITY_PROMPTS]
+
+
+def _f32_parity(params, cfg, *switches: str) -> float:
+    """Phases 15, 19, 24 and 25: f32 compute, the same weights, two
+    requests through a 2-slot engine on the kernel path and on the plain
+    path (``switches`` name the engine's arguments that select it): tokens
     equal, every sampled logit within ``F32_LOGIT_TOL``."""
     import dataclasses
 
@@ -1925,9 +1977,7 @@ def _f32_parity(params, cfg, switch: str) -> float:
     from repro_torch.serving.sampler import greedy
 
     cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
-    rng = np.random.default_rng(SEED + 1)
-    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
-               for n in PARITY_PROMPTS]
+    prompts = _parity_prompts(cfg.vocab_size)
     runs = {}
     for path in ("kernel", "plain"):
         seen = []
@@ -1938,7 +1988,7 @@ def _f32_parity(params, cfg, switch: str) -> float:
 
         eng = ServingEngine(cfg32, params, ServeConfig(
             max_batch=2, max_len=PARITY_MAX_LEN, cache_dtype="float32"),
-            sampler=sampler, **{switch: path})
+            sampler=sampler, **{switch: path for switch in switches})
         for uid, p in enumerate(prompts):
             eng.submit(Request(uid, p, max_new_tokens=PARITY_NEW))
         t0 = time.perf_counter()
@@ -2280,6 +2330,20 @@ SSD_PASSES = ("ssd_chunk_states_kernel", "ssd_state_passing_kernel",
               "ssd_chunk_outputs_kernel")
 
 
+def _ssd_bound(b, seq, h, p, n, dtype):
+    """Kernel 8's work at (B, L, H, P, N): (bytes, flops, ms at the byte
+    rate, ms at the operation rate of ``dtype``'s peak)."""
+    elt = torch.finfo(dtype).bits // 8
+    byt = (elt * (b * seq * h * p + 2 * b * seq * n)     # x, bm, cm
+           + 4 * (b * seq * h + h)                       # dt, a
+           + 4 * (b * seq * h * p + b * h * p * n))      # y, final state
+    flops = 4 * b * seq * h * p * n   # increment and read-out, per state
+    t_bytes = 1e3 * byt / PEAK_BYTES_S
+    t_ops = 1e3 * flops / (PEAK_BF16_FLOPS if dtype == torch.bfloat16
+                           else PEAK_F32_FLOPS)
+    return byt, flops, t_bytes, t_ops
+
+
 def ssd_times(S8, card):
     """Kernel 8 at the serving shape: the wrapper, its twin and a loop of C
     entry-point calls (the device time of all three passes) by CUDA events,
@@ -2356,14 +2420,7 @@ def ssd_times(S8, card):
     del xf, bf, cf
     log(f"  ssd_scan f32 instance (ssd_scan.cu, CUDA cores) at (B, L, H, P, "
         f"N)=({b}, {seq}, {h}, {p}, {n}): {f32_ms:.5f} ms per call [{card}]")
-    elt = torch.finfo(dtype).bits // 8
-    byt = (elt * (b * seq * h * p + 2 * b * seq * n)     # x, bm, cm
-           + 4 * (b * seq * h + h)                       # dt, a
-           + 4 * (b * seq * h * p + b * h * p * n))      # y, final state
-    flops = 4 * b * seq * h * p * n   # increment and read-out, per state
-    t_bytes = 1e3 * byt / PEAK_BYTES_S
-    t_ops = 1e3 * flops / (PEAK_BF16_FLOPS if dtype == torch.bfloat16
-                           else PEAK_F32_FLOPS)
+    byt, flops, t_bytes, t_ops = _ssd_bound(b, seq, h, p, n, dtype)
     rec = {"name": "ssd_scan", "route": "cuda",
            "source": "src/repro_torch/kernels/csrc/ssd_scan_bf16.cu",
            "replaces": "src/repro/kernels/ssd_scan.py:81",
@@ -3334,6 +3391,233 @@ def phase_telemetry(D, ops, problem, main_run, des, dist_run, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 24-25: the MoE and hybrid families at full width
+# ---------------------------------------------------------------------------
+
+def _moe_err(got, want, label) -> float:
+    diff = float((got - want).abs().max())
+    bound = MOE_TOL * max(1.0, float(want.abs().max()))
+    if not bool(torch.isfinite(got).all()) or not diff <= bound:
+        fail(f"{label}: max |diff| {diff}, bound {bound}")
+    return diff
+
+
+def _moe_inputs(params, cfg, tokens):
+    """Each layer's block and MoE input (the normed residual stream after
+    its attention half) on ``tokens``, as prefill computes them: the
+    layers in order, each MoE at the config's capacity."""
+    from repro_torch.models.attention import causal_attention
+    from repro_torch.models.layers import rms_norm
+    from repro_torch.models.moe import moe_block
+    from repro_torch.models.transformer import _residual, embed_inputs
+    x = embed_inputs(params, cfg, tokens)
+    for block in params["blocks"]:
+        x = _residual(x, causal_attention(
+            block["attn"], cfg, rms_norm(x, block["attn_norm"],
+                                         cfg.rms_eps)), cfg)
+        xn = rms_norm(x, block["ffn_norm"], cfg.rms_eps)
+        yield block, xn
+        x = _residual(x, moe_block(block["moe"], cfg, xn)[0], cfg)
+
+
+def _routing_margin(params, cfg) -> float:
+    """Phase 24 (c): the smallest gap between the k-th and (k+1)-th
+    router probability over every token and layer of the parity prompts'
+    prefill, f32 compute: a route that flips between the kernel and plain
+    paths needs a gap inside their rounding."""
+    import dataclasses
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    margin = float("inf")
+    for prompt in _parity_prompts(cfg.vocab_size):
+        tokens = torch.as_tensor(prompt.astype(np.int64), device="cuda")[None]
+        for block, xn in _moe_inputs(params, cfg32, tokens):
+            top = torch.topk(torch.softmax(
+                xn[0] @ block["moe"]["router"].float(), dim=-1),
+                cfg.top_k + 1, dim=-1).values
+            margin = min(margin, float((top[:, -2] - top[:, -1]).min()))
+    return margin
+
+
+def _moe_block_checks(params, engine, cfg, card):
+    """Phase 24 (b): layer 0's MoE block on the MoE input of a
+    3072-token prompt (its embedding through layer 0's attention half, f32
+    compute): scatter at capacity 8.0 against the dense oracle, scatter
+    against einsum at the config's capacity with the dropped pairs
+    counted, the statistics; then the bf16 serving block's time and
+    device launches at the prefill and decode shapes."""
+    import dataclasses
+
+    from repro_torch.models import moe as M
+
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    rng = np.random.default_rng(SEED + 3)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                          SERVE_PROMPT[1]).astype(np.int64),
+                             device="cuda")[None]
+    block, xn = next(_moe_inputs(params, cfg32, tokens))
+    t, k = xn.shape[1], cfg.top_k
+
+    def run(impl, capacity):
+        c = dataclasses.replace(cfg32, moe_impl=impl,
+                                capacity_factor=capacity)
+        return M.moe_block(block["moe"], c, xn)
+
+    y_dense, st_dense = run("dense", cfg.capacity_factor)
+    y_ample, st_ample = run("scatter", 8.0)
+    y_scatter, st_scatter = run("scatter", cfg.capacity_factor)
+    y_einsum, st_einsum = run("einsum", cfg.capacity_factor)
+    err_dense = _moe_err(y_ample, y_dense, "MoE scatter at capacity 8.0 vs "
+                         "the dense oracle")
+    err_einsum = _moe_err(y_scatter, y_einsum, f"MoE scatter vs einsum at "
+                          f"capacity {cfg.capacity_factor}")
+    for st in (st_ample, st_scatter, st_einsum):
+        if not all(torch.equal(a, b) for a, b in zip(st, st_dense)):
+            fail("the MoE impls' router statistics differ")
+    _, ids, _ = M._route(block["moe"], cfg32, xn.reshape(t, -1))
+    plans = {cap: M._dispatch(ids, dataclasses.replace(
+        cfg32, capacity_factor=cap), dropless=False)
+        for cap in (8.0, cfg.capacity_factor)}
+    kept = {cap: int(plan.keep.sum()) for cap, plan in plans.items()}
+    load_sum = float(st_dense.expert_load.sum())
+    coact = st_dense.coactivation
+    if kept[8.0] != t * k:
+        fail(f"capacity 8.0 dropped {t * k - kept[8.0]} pairs")
+    if abs(load_sum - k) > 1e-4 or not torch.equal(coact, coact.T) \
+            or bool(torch.diagonal(coact).any()):
+        fail(f"MoE statistics: expert_load sums to {load_sum}, coactivation "
+             f"symmetric {torch.equal(coact, coact.T)}, diagonal "
+             f"{torch.diagonal(coact).tolist()}")
+    plan = plans[cfg.capacity_factor]
+    load = st_dense.expert_load
+    log(f"  (b) layer 0's MoE block, {t} tokens, f32: scatter at capacity "
+        f"8.0 vs dense max |diff| {err_dense:.3e}; scatter vs einsum at "
+        f"{cfg.capacity_factor} (groups of {plan.sg}, {plan.groups} groups, "
+        f"capacity {plan.cap}) {err_einsum:.3e} (tolerance {MOE_TOL} x "
+        f"max(1, max |y|)); pairs kept {kept[cfg.capacity_factor]} of "
+        f"{t * k}, dropped {t * k - kept[cfg.capacity_factor]}; expert_load "
+        f"sums to {load_sum:.6f} (min {float(load.min()):.4f}, max "
+        f"{float(load.max()):.4f}), aux_loss "
+        f"{float(st_dense.aux_loss):.5f}, coactivation symmetric, zero "
+        f"diagonal")
+    del y_dense, y_ample, y_scatter, y_einsum
+    # the serving block: bf16 experts, f32 router, on the engine's weights
+    moe16 = engine.params["blocks"][0]["moe"]
+    x16 = xn.to(cfg.cdtype())
+    step16 = x16[0, :SERVE_SLOTS, None, :].contiguous()   # 16 slots, 1 token
+    out = {}
+    for label, fn in (
+            ("prefill", lambda: M.moe_block(moe16, cfg, x16)),
+            ("decode", lambda: M.moe_block(moe16, cfg, step16,
+                                           dropless=True))):
+        ms = cuda_ms(fn, MOE_TIMED_ITERS, warmup=2)
+        kernels, other, _ = device_launches(fn, calls=2, reps=2)
+        out[label] = (ms, kernels)
+        log(f"  (b) the bf16 MoE block at the {label} shape: {ms:.4f} ms a "
+            f"call (CUDA events), {kernels:.0f} device kernels a call "
+            f"({other:.0f} other graph nodes) [{card}]")
+    return {"err_dense": err_dense, "err_einsum": err_einsum,
+            "dropped": t * k - kept[cfg.capacity_factor], "times": out}
+
+
+def phase_moe(A, F, S8, card):
+    """Phase 24: granite-moe-1b-a400m at full width through the port's
+    ServingEngine (kernel 7 on every prefill layer, kernel 6 on every
+    decode layer, no kernel 8 and no twin); its layer-0 MoE block's
+    impls; the f32 kernel path against the plain path with the smallest
+    top-k routing margin."""
+    from repro_torch import configs
+    cfg = configs.get_config(MOE_ARCH)
+    log(f"  {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.num_heads} heads (kv {cfg.num_kv_heads}) x {cfg.head_dim}, "
+        f"{cfg.num_experts} experts top-{cfg.top_k} of d_ff {cfg.d_ff}, "
+        f"groups of {cfg.moe_group_size}, capacity {cfg.capacity_factor}, "
+        f"vocab {cfg.vocab_size}, params {cfg.param_dtype}, compute "
+        f"{cfg.compute_dtype}")
+    params, engine, stats, launches, twins = _serve_full_width(
+        cfg, (A, F, S8), card)
+    steps = stats["decode_steps"]
+    _check_serving_launches(launches, twins, {
+        "flash_attention": cfg.num_layers * SERVE_REQUESTS,
+        "decode_attention": cfg.num_layers * steps,
+        "ssd_scan": 0})
+    log(f"  (a) checks: every request has {SERVE_NEW} tokens, every logit "
+        f"finite, kernel 7 launched {cfg.num_layers} x {SERVE_REQUESTS} and "
+        f"kernel 6 {cfg.num_layers} x {steps} times, kernel 8 0 times, no "
+        f"twin ran")
+    _profile_decode(engine)
+    block = _moe_block_checks(params, engine, cfg, card)
+    del engine
+    torch.cuda.empty_cache()
+    rel32 = _f32_parity(params, cfg, "attention")
+    margin = _routing_margin(params, cfg)
+    log(f"  (c) smallest top-{cfg.top_k} routing margin (router "
+        f"probability {cfg.top_k} less {cfg.top_k + 1}, in descending "
+        f"order) over every token and layer of the parity prompts' f32 "
+        f"prefill: {margin:.3e}")
+    return {"launches": launches, "stats": stats, "block": block,
+            "f32_rel": rel32}
+
+
+def phase_hybrid(A, F, S8, card):
+    """Phase 25: zamba2-7b at full width through the port's ServingEngine
+    (kernel 8 on every Mamba2 prefill layer, kernel 7 on every prefill
+    application of the shared block, kernel 6 on every decode
+    application, no twin); kernel 8 against its twin at the serving
+    shape; the f32 kernel path against the plain path."""
+    from repro_torch import configs
+    cfg = configs.get_config(HYBRID_ARCH)
+    log(f"  {cfg.name}: {cfg.num_layers} Mamba2 layers of {cfg.ssm_heads} "
+        f"heads x {cfg.ssm_head_dim}, state {cfg.ssm_state}, chunk "
+        f"{cfg.ssm_chunk}, d_model {cfg.d_model}; one shared block of "
+        f"{cfg.num_heads} heads (kv {cfg.num_kv_heads}) x {cfg.head_dim}, "
+        f"d_ff {cfg.d_ff}, every {cfg.attn_period} layers; vocab "
+        f"{cfg.vocab_size}, params {cfg.param_dtype}, compute "
+        f"{cfg.compute_dtype}")
+    params, engine, stats, launches, twins = _serve_full_width(
+        cfg, (A, F, S8), card)
+    steps, n_attn = stats["decode_steps"], cfg.attention_layers
+    _check_serving_launches(launches, twins, {
+        "flash_attention": n_attn * SERVE_REQUESTS,
+        "decode_attention": n_attn * steps,
+        "ssd_scan": cfg.num_layers * SERVE_REQUESTS})
+    log(f"  (a) checks: every request has {SERVE_NEW} tokens, every logit "
+        f"finite, kernel 8 launched {cfg.num_layers} x {SERVE_REQUESTS}, "
+        f"kernel 7 {n_attn} x {SERVE_REQUESTS} and kernel 6 {n_attn} x "
+        f"{steps} times, no twin ran")
+    _profile_decode(engine)
+    del engine
+    torch.cuda.empty_cache()
+
+    # (b) kernel 8 at the serving shape: the longest prompt at zamba2's
+    # SSM widths, bf16 x/bm/cm as the bf16 compute gives them
+    shape = (1, SERVE_PROMPT[1], cfg.ssm_heads, cfg.ssm_head_dim,
+             cfg.ssm_state)
+    x, dt, a, bm, cm = _ssd_inputs(*shape, torch.bfloat16, 25)
+    got = S8.ssd_scan_cuda(x, dt, a, bm, cm)
+    want = S8.ssd_scan_twin(x, dt, a, bm, cm, cfg.ssm_chunk)
+    torch.cuda.synchronize()
+    ey = _ssd_err(got[0], want[0], f"kernel 8 y {shape}")
+    es = _ssd_err(got[1], want[1], f"kernel 8 state {shape}")
+    del got, want
+    k8 = cuda_ms(lambda: S8.ssd_scan_cuda(x, dt, a, bm, cm), 20, warmup=2)
+    p8 = cuda_ms(lambda: S8.ssd_scan_twin(x, dt, a, bm, cm, cfg.ssm_chunk),
+                 5, warmup=1)
+    byt, flops, t_bytes, t_ops = _ssd_bound(*shape, torch.bfloat16)
+    bound = max(t_bytes, t_ops)
+    log(f"  (b) kernel 8 (B, L, H, P, N)={shape} bf16 vs twin: y max |diff| "
+        f"{ey:.3e}, state {es:.3e} (tolerance {SSD_TOL} x max(1, max "
+        f"|want|)); kernel {k8:.5f} ms a call, twin {p8:.5f} ms, bound "
+        f"{bound:.5f} ms ({'bytes' if t_bytes >= t_ops else 'operations'}; "
+        f"{byt / 1e6:.2f} MB, {flops / 1e9:.2f} GFLOP), kernel / bound "
+        f"{k8 / bound:.2f} [{card}]")
+    del x, dt, a, bm, cm
+
+    rel32 = _f32_parity(params, cfg, "attention", "ssm")
+    return {"launches": launches, "stats": stats, "ssd_err": max(ey, es),
+            "k8_ms": k8, "f32_rel": rel32}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke run needs one GPU")
@@ -3502,6 +3786,25 @@ def main() -> int:
     for rec in kernels:
         if tel["launches"].get(rec["name"]):
             rec["telemetry_launches"] = tel["launches"][rec["name"]]
+    del problem, main_run, des, dist_run, tel
+    torch.cuda.empty_cache()
+    log(f"== phase 24: {MOE_ARCH} at full width through ServingEngine "
+        f"(kernels 6-7), its MoE block, kernel vs plain path")
+    t0 = time.perf_counter()
+    moe_run = phase_moe(A, F, S8, card)
+    log(f"  phase 24: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    log(f"== phase 25: {HYBRID_ARCH} at full width through ServingEngine "
+        f"(kernels 6-8), kernel 8 at its shape, kernel vs plain path")
+    t0 = time.perf_counter()
+    hybrid_run = phase_hybrid(A, F, S8, card)
+    log(f"  phase 25: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    for rec in kernels:
+        if rec["name"] in ("decode_attention", "flash_attention",
+                           "ssd_scan"):
+            rec["moe_launches"] = moe_run["launches"][rec["name"]]
+            rec["hybrid_launches"] = hybrid_run["launches"][rec["name"]]
     log(f"  total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -1,12 +1,17 @@
 """Serving driver: continuous batching over the slot-pool engine (port of
 ``repro.launch.serve``).  Runs on the card unless ``--device cpu``;
-weights are random, from the seed.  The dense and SSM families are ported
-(``--arch qwen1.5-4b``, ``--arch mamba2-1.3b``, ...); smoke width unless
-``--full``.
+weights are random, from the seed.  All four families serve: dense
+(``--arch qwen1.5-4b``, ...), MoE (``--arch granite-moe-1b-a400m``,
+``qwen3-moe-235b-a22b``), SSM (``--arch mamba2-1.3b``) and hybrid
+(``--arch zamba2-7b``); smoke width unless ``--full``.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-4b \\
       --requests 16 --max-new 24 --slots 4 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b \\
+      --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch granite-moe-1b-a400m --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \\
       --device cpu
 """
 from __future__ import annotations
@@ -53,7 +58,9 @@ def serve(arch: str, *, smoke: bool = True, requests: int = 16,
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch", required=True,
+                    help="a config of any family: "
+                         + ", ".join(configs.all_archs()))
     ap.add_argument("--smoke", action="store_true", default=True)
     ap.add_argument("--full", dest="smoke", action="store_false")
     ap.add_argument("--requests", type=int, default=16)

@@ -4,8 +4,10 @@
 ``repro.models.transformer.init_params`` with numpy leaves (``np.asarray``
 of each JAX array; the caller converts, so this module needs no JAX) and
 returns the dict that :mod:`repro_torch.models.transformer` reads: the
-same names, with the stacked ``blocks`` (leading L axis) split into a list
-of per-layer dicts.  Values are copied exactly; bfloat16 leaves pass
+same names, with the stacked ``blocks`` (leading L axis, nested dicts such
+as an MoE's ``moe/{router,gate,up,down}`` included) split into a list of
+per-layer dicts; other top-level entries, such as a hybrid's ``shared``
+block, keep their nesting.  Values are copied exactly; bfloat16 leaves pass
 through float32, which holds every bfloat16 value.
 """
 from __future__ import annotations

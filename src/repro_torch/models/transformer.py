@@ -1,14 +1,17 @@
-"""Decoder-LM assembly, dense and SSM families (port of
+"""Decoder-LM assembly for all four families (port of
 ``repro.models.transformer``).
 
 Parameters are a dict under the reference's names — ``embed``,
-``blocks``, ``final_norm``, ``lm_head`` — except that ``blocks`` is a
-list of per-layer dicts (dense: ``attn_norm``,
+``blocks``, ``final_norm``, ``lm_head``, and a hybrid's ``shared`` —
+except that ``blocks`` is a list of per-layer dicts (dense: ``attn_norm``,
 ``attn.{wq,wk,wv,wo,bq,bk,bv}``, ``ffn_norm``, ``mlp.{gate,up,down}``;
-SSM: ``norm``, ``ssm.{in_proj,conv_w,A_log,dt_bias,D,gate_norm,
-out_proj}``) where the reference stacks them on a leading L axis for
-``lax.scan``; :mod:`repro_torch.models.convert` maps one onto the other.
-Layers run in a Python loop.
+MoE: the same with ``moe.{router,gate,up,down}`` in place of ``mlp``;
+SSM and hybrid: ``norm``, ``ssm.{in_proj,conv_w,A_log,dt_bias,D,
+gate_norm,out_proj}``) where the reference stacks them on a leading L axis
+for ``lax.scan``; :mod:`repro_torch.models.convert` maps one onto the
+other.  Layers run in a Python loop.  A hybrid (Zamba2-style) applies its
+one ``shared`` attention+MLP block after every layer l with
+``(l + 1) % attn_period == 0``; only those applications hold a KV cache.
 
 Public entry points:
   * init_params(cfg, generator)                  -> params
@@ -17,15 +20,16 @@ Public entry points:
   * decode_step(params, cfg, inputs, cache)      -> logits, cache
   * init_cache(cfg, batch, max_len, dtype, device)
 
-The dense ``prefill`` runs kernel 7 once per layer and its
-``decode_step`` kernel 6 once per layer; both take ``attention="plain"``
-to run the kernels' twins instead.  The SSM ``prefill`` (and
-``forward_logits``) runs kernel 8 once per layer, or its twin with
-``ssm="plain"``; its ``decode_step`` is plain PyTorch.  ``decode_step``
-writes the new keys and values, or the new SSM states and conv windows,
-into the cache in place.  The MoE and hybrid families raise
-``NotImplementedError``: they come with a later slice of the port, as
-does ``forward_train``.
+Every attention layer (dense, MoE, and the hybrid's shared block) runs
+kernel 7 in ``prefill`` and ``forward_logits`` and kernel 6 in
+``decode_step``; ``attention="plain"`` runs the kernels' twins instead.
+Every Mamba2 layer (SSM, hybrid) runs kernel 8 in ``prefill`` and
+``forward_logits``, or its twin with ``ssm="plain"``; its decode step is
+plain PyTorch.  An MoE block drops (token, slot) pairs past the config's
+capacity in ``forward_logits`` and ``prefill`` and is dropless in
+``decode_step``, as the reference.  ``decode_step`` writes the new keys
+and values, SSM states and conv windows into the cache in place.
+``forward_train`` comes with the port's training slice.
 """
 from __future__ import annotations
 
@@ -37,44 +41,74 @@ from ..core.problem import resolve_device
 from .attention import (KVCache, _causal_core, _project_qkv,
                         causal_attention, decode_attention_step,
                         init_attention)
-from .config import DENSE, SSM, ModelConfig
+from .config import DENSE, HYBRID, MOE, SSM, ModelConfig
 from .layers import init_mlp, normal_init, rms_norm, swiglu
+from .moe import init_moe, moe_block
 from .ssm import SSMCache, conv_dim, init_ssm, ssm_block, ssm_decode_step
 
 
 class DecodeCache(NamedTuple):
-    kv_k: Optional[torch.Tensor]       # (L, B, S_max, Hkv, D)
-    kv_v: Optional[torch.Tensor]       # (L, B, S_max, Hkv, D)
+    kv_k: Optional[torch.Tensor]       # (L_attn, B, S_max, Hkv, D)
+    kv_v: Optional[torch.Tensor]       # (L_attn, B, S_max, Hkv, D)
     ssm_state: Optional[torch.Tensor]  # (L, B, H, P, N) f32
     ssm_conv: Optional[torch.Tensor]   # (L, B, W-1, conv_dim)
     position: torch.Tensor             # () or (B,) int32 — tokens cached
 
 
-def _ported(cfg: ModelConfig) -> None:
-    if cfg.family not in (DENSE, SSM):
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported yet (a "
-            f"later slice brings MoE and hybrid); the port runs the dense "
-            f"and SSM families")
+def _mamba_layers(cfg: ModelConfig) -> bool:
+    """True for the families built of Mamba2 layers (SSM, hybrid), False
+    for those built of attention layers (dense, MoE); raises on any other
+    family."""
+    if cfg.family in (SSM, HYBRID):
+        return True
+    if cfg.family in (DENSE, MOE):
+        return False
+    raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}; the "
+                     f"families are {DENSE}, {MOE}, {SSM} and {HYBRID}")
+
+
+def _shared_after(cfg: ModelConfig, layer: int) -> bool:
+    """Whether a hybrid applies its shared block after ``layer``."""
+    return cfg.family == HYBRID and cfg.attn_period > 0 \
+        and (layer + 1) % cfg.attn_period == 0
+
+
+def _attention_layer_index(cfg: ModelConfig) -> list[int]:
+    """Layer index -> index into a hybrid's stacked shared-attention KV
+    cache (0 where the shared block does not run)."""
+    ids, count = [], 0
+    for layer in range(cfg.num_layers):
+        ids.append(count if _shared_after(cfg, layer) else 0)
+        count += _shared_after(cfg, layer)
+    return ids
 
 
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
 
-def _init_block(generator: torch.Generator, cfg: ModelConfig) -> dict:
+def _init_attention_block(generator: torch.Generator, cfg: ModelConfig,
+                          ffn: str) -> dict:
     dtype, dev = cfg.pdtype(), generator.device
-    if cfg.family == SSM:
-        return {
-            "norm": torch.ones((cfg.d_model,), dtype=dtype, device=dev),
-            "ssm": init_ssm(generator, cfg),
-        }
-    return {
+    block = {
         "attn_norm": torch.ones((cfg.d_model,), dtype=dtype, device=dev),
         "attn": init_attention(generator, cfg),
         "ffn_norm": torch.ones((cfg.d_model,), dtype=dtype, device=dev),
-        "mlp": init_mlp(generator, cfg.d_model, cfg.d_ff, dtype),
     }
+    block[ffn] = init_moe(generator, cfg) if ffn == "moe" \
+        else init_mlp(generator, cfg.d_model, cfg.d_ff, dtype)
+    return block
+
+
+def _init_block(generator: torch.Generator, cfg: ModelConfig) -> dict:
+    if _mamba_layers(cfg):
+        return {
+            "norm": torch.ones((cfg.d_model,), dtype=cfg.pdtype(),
+                               device=generator.device),
+            "ssm": init_ssm(generator, cfg),
+        }
+    return _init_attention_block(generator, cfg,
+                                 "moe" if cfg.family == MOE else "mlp")
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator | int = 0,
@@ -82,7 +116,6 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | int = 0,
     """Random parameters of ``cfg`` (the reference's initializers and
     scales), drawn from ``generator`` on its device.  An int seeds a new
     generator on ``device`` (default: the card)."""
-    _ported(cfg)
     if not isinstance(generator, torch.Generator):
         generator = torch.Generator(
             device=resolve_device(device)).manual_seed(int(generator))
@@ -98,11 +131,14 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | int = 0,
         params["lm_head"] = normal_init(
             generator, (cfg.d_model, cfg.vocab_size), cfg.d_model ** -0.5,
             dtype)
+    if cfg.family == HYBRID and cfg.attn_period > 0:
+        params["shared"] = _init_attention_block(generator, cfg, "mlp")
     return params
 
 
-# SSM leaves the reference reads in f32 whatever the compute dtype
-_F32_LEAVES = ("A_log", "dt_bias", "D", "conv_w")
+# leaves the reference reads in f32 whatever the compute dtype: the SSM's
+# and the MoE router (rounding it would change the routing)
+_F32_LEAVES = ("A_log", "dt_bias", "D", "conv_w", "router")
 
 
 def _keeps_dtype(name: str) -> bool:
@@ -111,12 +147,12 @@ def _keeps_dtype(name: str) -> bool:
 
 def cast_params(params, dtype: torch.dtype):
     """``params`` with every matrix and bias in ``dtype``, and as they are
-    the norm weights (``rms_norm`` reads them in f32) and the SSM leaves
-    ``A_log``, ``dt_bias``, ``D`` and ``conv_w`` (read in f32).  Every use
-    casts a weight to the compute dtype, as the reference does; casting
-    once gives the same values and saves the per-step copies (at
-    qwen1.5-4b's width ~24 GB of traffic per decode step).  Tensors
-    already in ``dtype`` are shared, not copied."""
+    the norm weights (``rms_norm`` reads them in f32), the SSM leaves
+    ``A_log``, ``dt_bias``, ``D`` and ``conv_w`` and the MoE ``router``
+    (read in f32).  Every use casts a weight to the compute dtype, as the
+    reference does; casting once gives the same values and saves the
+    per-step copies (at qwen1.5-4b's width ~24 GB of traffic per decode
+    step).  Tensors already in ``dtype`` are shared, not copied."""
     if isinstance(params, list):
         return [cast_params(p, dtype) for p in params]
     return {name: (cast_params(value, dtype)
@@ -135,14 +171,30 @@ def _residual(x, h, cfg: ModelConfig):
     return x + h
 
 
-def _mlp(block: dict, cfg: ModelConfig, x):
+def _ffn(block: dict, cfg: ModelConfig, x, dropless: bool = False):
+    """The block's feed-forward half on ``rms_norm(x)``: its MoE (with its
+    statistics) or its SwiGLU MLP (statistics None)."""
+    xn = rms_norm(x, block["ffn_norm"], cfg.rms_eps)
+    if "moe" in block:
+        return moe_block(block["moe"], cfg, xn, dropless=dropless)
     m = block["mlp"]
-    return swiglu(rms_norm(x, block["ffn_norm"], cfg.rms_eps),
-                  m["gate"], m["up"], m["down"])
+    return swiglu(xn, m["gate"], m["up"], m["down"]), None
+
+
+def _attention_block(block: dict, cfg: ModelConfig, x, attention: str):
+    """A dense or MoE layer, or a hybrid's shared block, on the full
+    sequence: x -> x, MoE statistics (None without an MoE)."""
+    h = causal_attention(
+        block["attn"], cfg, rms_norm(x, block["attn_norm"], cfg.rms_eps),
+        attention=attention)
+    x = _residual(x, h, cfg)
+    h, stats = _ffn(block, cfg, x)
+    return _residual(x, h, cfg), stats
 
 
 def _no_aux(cfg: ModelConfig, device):
-    """The reference's MoE statistics, all zero for the dense family."""
+    """The reference's MoE statistics, all zero for the families without
+    an MoE."""
     e = max(cfg.num_experts, 1)
     return (torch.zeros((), device=device), torch.zeros((e,), device=device),
             torch.zeros((e, e), device=device))
@@ -150,22 +202,28 @@ def _no_aux(cfg: ModelConfig, device):
 
 def backbone(params: dict, cfg: ModelConfig, x, attention: str = "kernel",
              ssm: str = "kernel"):
-    """The blocks in order.  x: (B, S, d) -> (B, S, d), aux stats."""
-    _ported(cfg)
-    if cfg.family == SSM:
-        for block in params["blocks"]:
+    """The blocks in order.  x: (B, S, d) -> (B, S, d), aux stats: an
+    MoE's auxiliary loss summed over the layers, its expert load averaged
+    over them and its co-activation counts summed; zeros for the other
+    families."""
+    if _mamba_layers(cfg):
+        for layer, block in enumerate(params["blocks"]):
             h, _ = ssm_block(block["ssm"], cfg,
                              rms_norm(x, block["norm"], cfg.rms_eps),
                              ssm=ssm)
             x = _residual(x, h, cfg)
+            if _shared_after(cfg, layer):
+                x, _ = _attention_block(params["shared"], cfg, x, attention)
         return x, _no_aux(cfg, x.device)
+    stats = []
     for block in params["blocks"]:
-        h = causal_attention(
-            block["attn"], cfg, rms_norm(x, block["attn_norm"], cfg.rms_eps),
-            attention=attention)
-        x = _residual(x, h, cfg)
-        x = _residual(x, _mlp(block, cfg, x), cfg)
-    return x, _no_aux(cfg, x.device)
+        x, layer_stats = _attention_block(block, cfg, x, attention)
+        stats.append(layer_stats)
+    if cfg.family != MOE:
+        return x, _no_aux(cfg, x.device)
+    aux, load, coact = (torch.stack(v) for v in zip(*stats))
+    return x, (torch.sum(aux), torch.mean(load, dim=0),
+               torch.sum(coact, dim=0))
 
 
 def embed_inputs(params: dict, cfg: ModelConfig, inputs):
@@ -193,58 +251,65 @@ def forward_logits(params: dict, cfg: ModelConfig, inputs,
     return unembed(params, cfg, x), aux
 
 
-def _prefill_ssm(params: dict, cfg: ModelConfig, x, ssm: str):
-    """The SSM arm of prefill: each layer's final state (f32) and conv
-    tail (compute dtype), stacked on a leading L axis."""
+def _prefill_attention(block: dict, cfg: ModelConfig, x, kv, slot: int,
+                       attention: str):
+    """``_attention_block`` that also writes the prompt's keys and values
+    into ``kv[0][slot]``, ``kv[1][slot]``; MoE statistics are dropped."""
     b, s = x.shape[0], x.shape[1]
-    states = torch.empty((cfg.num_layers, b, cfg.ssm_heads,
-                          cfg.ssm_head_dim, cfg.ssm_state),
-                         dtype=torch.float32, device=x.device)
-    convs = torch.empty((cfg.num_layers, b, cfg.ssm_conv - 1, conv_dim(cfg)),
-                        dtype=cfg.cdtype(), device=x.device)
-    for layer, block in enumerate(params["blocks"]):
-        h, states[layer], convs[layer] = ssm_block(
-            block["ssm"], cfg, rms_norm(x, block["norm"], cfg.rms_eps),
-            return_conv_tail=True, ssm=ssm)
-        x = _residual(x, h, cfg)
-    cache = DecodeCache(kv_k=None, kv_v=None, ssm_state=states,
-                        ssm_conv=convs,
-                        position=torch.tensor(s, dtype=torch.int32,
-                                              device=x.device))
-    return x, cache
+    xn = rms_norm(x, block["attn_norm"], cfg.rms_eps)
+    positions = torch.arange(s, device=x.device)[None, :]
+    q, k, v = _project_qkv(block["attn"], cfg, xn, positions)
+    h = _causal_core(q, k, v, cfg, attention=attention)
+    h = h.reshape(b, s, -1) @ block["attn"]["wo"].to(x.dtype)
+    x = _residual(x, h, cfg)
+    h, _ = _ffn(block, cfg, x)
+    kv[0][slot, :, :s] = k
+    kv[1][slot, :, :s] = v
+    return _residual(x, h, cfg)
 
 
 def prefill(params: dict, cfg: ModelConfig, inputs, max_len: int,
             attention: str = "kernel", ssm: str = "kernel"):
     """Prefill forward: consumes the prompt, returns (last-token logits
-    (B, 1, V), DecodeCache ready for decode_step).  A dense cache holds
-    the prompt's keys and values in the compute dtype, padded to
-    ``max_len``; an SSM cache each layer's final state (f32) and conv
+    (B, 1, V), DecodeCache ready for decode_step).  The cache holds each
+    attention layer's keys and values in the compute dtype, padded to
+    ``max_len``, and each Mamba2 layer's final state (f32) and conv
     window (compute dtype), whatever ``max_len``.  No full-sequence
     logits are built."""
-    _ported(cfg)
+    mamba = _mamba_layers(cfg)
     x = embed_inputs(params, cfg, inputs)
-    if cfg.family == SSM:
-        x, cache = _prefill_ssm(params, cfg, x, ssm)
-        x = rms_norm(x[:, -1:, :], params["final_norm"], cfg.rms_eps)
-        return unembed(params, cfg, x), cache
     b, s = x.shape[0], x.shape[1]
-    if s > max_len:
-        raise ValueError(f"prompt of {s} tokens exceeds max_len={max_len}")
-    shape = (cfg.num_layers, b, max_len, cfg.num_kv_heads, cfg.head_dim)
-    kv_k = torch.zeros(shape, dtype=cfg.cdtype(), device=x.device)
-    kv_v = torch.zeros(shape, dtype=cfg.cdtype(), device=x.device)
-    positions = torch.arange(s, device=x.device)[None, :]
-    for layer, block in enumerate(params["blocks"]):
-        xn = rms_norm(x, block["attn_norm"], cfg.rms_eps)
-        q, k, v = _project_qkv(block["attn"], cfg, xn, positions)
-        h = _causal_core(q, k, v, cfg, attention=attention)
-        h = h.reshape(b, s, -1) @ block["attn"]["wo"].to(x.dtype)
-        x = _residual(x, h, cfg)
-        x = _residual(x, _mlp(block, cfg, x), cfg)
-        kv_k[layer, :, :s] = k
-        kv_v[layer, :, :s] = v
-    cache = DecodeCache(kv_k=kv_k, kv_v=kv_v, ssm_state=None, ssm_conv=None,
+    kv = (None, None)
+    if cfg.attention_layers:
+        if s > max_len:
+            raise ValueError(f"prompt of {s} tokens exceeds "
+                             f"max_len={max_len}")
+        shape = (cfg.attention_layers, b, max_len, cfg.num_kv_heads,
+                 cfg.head_dim)
+        kv = tuple(torch.zeros(shape, dtype=cfg.cdtype(), device=x.device)
+                   for _ in "kv")
+    states = convs = None
+    if mamba:
+        states = torch.empty((cfg.num_layers, b, cfg.ssm_heads,
+                              cfg.ssm_head_dim, cfg.ssm_state),
+                             dtype=torch.float32, device=x.device)
+        convs = torch.empty((cfg.num_layers, b, cfg.ssm_conv - 1,
+                             conv_dim(cfg)), dtype=cfg.cdtype(),
+                            device=x.device)
+        kv_index = _attention_layer_index(cfg)
+        for layer, block in enumerate(params["blocks"]):
+            h, states[layer], convs[layer] = ssm_block(
+                block["ssm"], cfg, rms_norm(x, block["norm"], cfg.rms_eps),
+                return_conv_tail=True, ssm=ssm)
+            x = _residual(x, h, cfg)
+            if _shared_after(cfg, layer):
+                x = _prefill_attention(params["shared"], cfg, x, kv,
+                                       kv_index[layer], attention)
+    else:
+        for layer, block in enumerate(params["blocks"]):
+            x = _prefill_attention(block, cfg, x, kv, layer, attention)
+    cache = DecodeCache(kv_k=kv[0], kv_v=kv[1], ssm_state=states,
+                        ssm_conv=convs,
                         position=torch.tensor(s, dtype=torch.int32,
                                               device=x.device))
     x = rms_norm(x[:, -1:, :], params["final_norm"], cfg.rms_eps)
@@ -257,40 +322,57 @@ def prefill(params: dict, cfg: ModelConfig, inputs, max_len: int,
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device=None) -> DecodeCache:
-    """An empty cache of ``batch`` rows of ``max_len`` on ``device``
-    (default: the card); an SSM cache holds an f32 state and a ``dtype``
-    conv window per layer and row, whatever ``max_len``."""
-    _ported(cfg)
+    """An empty cache of ``batch`` rows on ``device`` (default: the
+    card): ``dtype`` keys and values of ``max_len`` positions for each
+    attention layer (a hybrid's: each application of its shared block),
+    and an f32 state and a ``dtype`` conv window for each Mamba2 layer,
+    whatever ``max_len``."""
+    mamba = _mamba_layers(cfg)
     device = resolve_device(device)
-    if cfg.family == SSM:
-        return DecodeCache(
-            kv_k=None, kv_v=None,
-            ssm_state=torch.zeros((cfg.num_layers, batch, cfg.ssm_heads,
-                                   cfg.ssm_head_dim, cfg.ssm_state),
-                                  dtype=torch.float32, device=device),
-            ssm_conv=torch.zeros((cfg.num_layers, batch, cfg.ssm_conv - 1,
-                                  conv_dim(cfg)), dtype=dtype,
-                                 device=device),
-            position=torch.zeros((), dtype=torch.int32, device=device))
-    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
-    return DecodeCache(
-        kv_k=torch.zeros(shape, dtype=dtype, device=device),
-        kv_v=torch.zeros(shape, dtype=dtype, device=device),
-        ssm_state=None, ssm_conv=None,
-        position=torch.zeros((), dtype=torch.int32, device=device))
+    kv_k = kv_v = ssm_state = ssm_conv = None
+    if cfg.attention_layers:
+        shape = (cfg.attention_layers, batch, max_len, cfg.num_kv_heads,
+                 cfg.head_dim)
+        kv_k = torch.zeros(shape, dtype=dtype, device=device)
+        kv_v = torch.zeros(shape, dtype=dtype, device=device)
+    if mamba:
+        ssm_state = torch.zeros((cfg.num_layers, batch, cfg.ssm_heads,
+                                 cfg.ssm_head_dim, cfg.ssm_state),
+                                dtype=torch.float32, device=device)
+        ssm_conv = torch.zeros((cfg.num_layers, batch, cfg.ssm_conv - 1,
+                                conv_dim(cfg)), dtype=dtype, device=device)
+    return DecodeCache(kv_k=kv_k, kv_v=kv_v, ssm_state=ssm_state,
+                       ssm_conv=ssm_conv,
+                       position=torch.zeros((), dtype=torch.int32,
+                                            device=device))
+
+
+def _decode_attention(block: dict, cfg: ModelConfig, x, cache: DecodeCache,
+                      slot: int, attention: str):
+    """One token through an attention layer (or a hybrid's shared block)
+    whose keys and values are ``cache``'s entry ``slot``; an MoE runs
+    dropless."""
+    kv_l = KVCache(k=cache.kv_k[slot], v=cache.kv_v[slot],
+                   length=cache.position)
+    h, _ = decode_attention_step(
+        block["attn"], cfg, rms_norm(x, block["attn_norm"], cfg.rms_eps),
+        kv_l, attention=attention)
+    x = _residual(x, h, cfg)
+    h, _ = _ffn(block, cfg, x, dropless=True)
+    return _residual(x, h, cfg)
 
 
 def decode_step(params: dict, cfg: ModelConfig, inputs, cache: DecodeCache,
                 attention: str = "kernel"):
     """One decode step.  inputs: (B, 1) ids or (B, 1, d) embeddings.
-    Writes each layer's new key and value (dense), or its new state and
-    conv window (SSM, the window cast to the cache's dtype), into
-    ``cache`` in place and returns (logits (B, 1, V), the cache with
-    ``position + 1``)."""
-    _ported(cfg)
+    Writes each attention layer's new key and value and each Mamba2
+    layer's new state and conv window (the window cast to the cache's
+    dtype) into ``cache`` in place and returns (logits (B, 1, V), the
+    cache with ``position + 1``)."""
+    mamba = _mamba_layers(cfg)
     x = embed_inputs(params, cfg, inputs)
-    pos = cache.position
-    if cfg.family == SSM:
+    if mamba:
+        kv_index = _attention_layer_index(cfg)
         for layer, block in enumerate(params["blocks"]):
             h, new = ssm_decode_step(
                 block["ssm"], cfg, rms_norm(x, block["norm"], cfg.rms_eps),
@@ -299,15 +381,12 @@ def decode_step(params: dict, cfg: ModelConfig, inputs, cache: DecodeCache,
             cache.ssm_state[layer] = new.state
             cache.ssm_conv[layer] = new.conv
             x = _residual(x, h, cfg)
-        x = rms_norm(x, params["final_norm"], cfg.rms_eps)
-        return unembed(params, cfg, x), cache._replace(position=pos + 1)
-    for layer, block in enumerate(params["blocks"]):
-        kv_l = KVCache(k=cache.kv_k[layer], v=cache.kv_v[layer],
-                       length=pos)
-        h, _ = decode_attention_step(
-            block["attn"], cfg, rms_norm(x, block["attn_norm"], cfg.rms_eps),
-            kv_l, attention=attention)
-        x = _residual(x, h, cfg)
-        x = _residual(x, _mlp(block, cfg, x), cfg)
+            if _shared_after(cfg, layer):
+                x = _decode_attention(params["shared"], cfg, x, cache,
+                                      kv_index[layer], attention)
+    else:
+        for layer, block in enumerate(params["blocks"]):
+            x = _decode_attention(block, cfg, x, cache, layer, attention)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
-    return unembed(params, cfg, x), cache._replace(position=pos + 1)
+    return unembed(params, cfg, x), cache._replace(
+        position=cache.position + 1)

@@ -8,11 +8,14 @@ positions, so sequences of different lengths decode together in one
 Scheduling is host-side Python, as in the reference: the same admission
 order, slot pool, budgets and stats.  Tensor work is two calls:
 
-  * ``prefill``      — B=1 prompt prefill (kernel 7 per layer of a dense
-                       model, kernel 8 per layer of an SSM) producing a
-                       slot-shaped cache, copied into the free slot;
-  * ``decode_step``  — one token for every slot (kernel 6 per dense layer;
-                       the SSM step is plain PyTorch).
+  * ``prefill``      — B=1 prompt prefill (kernel 7 per attention layer
+                       of a dense or MoE model and per application of a
+                       hybrid's shared block, kernel 8 per Mamba2 layer of
+                       an SSM or hybrid) producing a slot-shaped cache,
+                       copied into the free slot;
+  * ``decode_step``  — one token for every slot (kernel 6 per attention
+                       layer or shared-block application; the Mamba2 step
+                       is plain PyTorch; an MoE runs dropless).
 
 Idle slots decode garbage that is masked out on the host; their positions
 advance too, and a KV write past ``max_len`` lands on the last row, as XLA
@@ -57,8 +60,9 @@ class Request:
 def _write_slot(batched: DecodeCache, single: DecodeCache, slot: int,
                 position) -> DecodeCache:
     """Copy a B=1 cache into slot ``slot`` of the batched cache, in place
-    (cast to the batched cache's dtype); the slot's previous contents are
-    overwritten, not added to."""
+    (cast to the batched cache's dtype): its keys and values, SSM states
+    and conv windows, whichever the model has (a hybrid has all four); the
+    slot's previous contents are overwritten, not added to."""
     for dst, src in ((batched.kv_k, single.kv_k),
                      (batched.kv_v, single.kv_v),
                      (batched.ssm_state, single.ssm_state),
@@ -77,7 +81,7 @@ class ServingEngine:
     >>> stats = eng.run()          # drains the queue
 
     ``attention="plain"`` runs the kernels' twins instead of kernels 6–7,
-    ``ssm="plain"`` the twin instead of kernel 8.
+    ``ssm="plain"`` the twin instead of kernel 8; a hybrid takes both.
     """
 
     def __init__(self, cfg: ModelConfig, params: dict, serve: ServeConfig,

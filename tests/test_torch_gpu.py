@@ -1138,3 +1138,92 @@ def test_recorder_adds_only_its_reads_of_the_card(card):
         lambda: engine.run_simulation(cfg, adj, state, churn,
                                       recorder=Recorder()))
     assert n_off > 0 and 0 <= n_on - n_off <= 1
+
+
+# ---------------------------------------------------------------------------
+# the MoE and hybrid families: kernel path against plain path
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m",
+                                  "qwen3-moe-235b-a22b", "zamba2-7b"])
+def test_moe_and_hybrid_kernel_path_matches_plain_path(card, arch):
+    """Smoke configs (f32 compute) on the card: a prefill of 33 tokens and
+    7 decode steps on the kernel path (kernels 6-7, and 8 for the hybrid)
+    against the same on the plain path: logits within 1e-4, the greedy
+    tokens equal, each kernel launched once a layer it serves."""
+    from repro_torch import configs
+    from repro_torch.kernels import decode_attention as A
+    from repro_torch.kernels import flash_attention as F
+    from repro_torch.kernels import ssd_scan as S8
+    from repro_torch.models import transformer as T
+
+    cfg = configs.get_smoke_config(arch)
+    params = T.init_params(cfg, torch.Generator(device=card).manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab_size, (2, 40), device=card,
+                           generator=torch.Generator(device=card)
+                           .manual_seed(1))
+    out = {}
+    for path in ("kernel", "plain"):
+        for mod in (A, F, S8):
+            mod.reset_launches()
+        last, cache = T.prefill(params, cfg, tokens[:, :33], max_len=48,
+                                attention=path, ssm=path)
+        logits = [last]
+        for i in range(33, 40):
+            step, cache = T.decode_step(params, cfg, tokens[:, i:i + 1],
+                                        cache, attention=path)
+            logits.append(step)
+        torch.cuda.synchronize()
+        out[path] = torch.cat(logits, dim=1)
+        launches = {**A.launches, **F.launches, **S8.launches}
+        mamba = cfg.family == "hybrid"
+        want = {"flash_attention": cfg.attention_layers,
+                "decode_attention": cfg.attention_layers * 7,
+                "ssd_scan": cfg.num_layers if mamba else 0}
+        if path == "plain":
+            want = dict.fromkeys(want, 0)
+        assert launches == want, (path, launches)
+    torch.testing.assert_close(out["kernel"], out["plain"], rtol=1e-4,
+                               atol=1e-4)
+    assert torch.equal(out["kernel"].argmax(-1), out["plain"].argmax(-1))
+
+
+@pytest.mark.gpu
+def test_moe_block_scatter_matches_dense_on_the_card(card):
+    """granite's expert layout (32 experts, top-8) at a narrow width, f32:
+    scatter at capacity 8.0 against the dense oracle and against einsum at
+    a capacity that drops, within 1e-4; equal statistics; and the scatter
+    path makes no host sync (``set_sync_debug_mode("error")``)."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import moe as M
+
+    cfg = dataclasses.replace(
+        configs.get_smoke_config("granite-moe-1b-a400m"), d_model=256,
+        d_ff=128, num_experts=32, top_k=8, moe_group_size=64)
+    params = M.init_moe(torch.Generator(device=card).manual_seed(0), cfg)
+    x = torch.randn((2, 150, cfg.d_model), device=card,
+                    generator=torch.Generator(device=card).manual_seed(1))
+
+    def run(impl, capacity, **kw):
+        return M.moe_block(params, dataclasses.replace(
+            cfg, moe_impl=impl, capacity_factor=capacity), x, **kw)
+
+    y_dense, st_dense = run("dense", 1.0)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        y_ample, st_ample = run("scatter", 8.0)
+        y_drop, _ = run("scatter", 0.5)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    y_einsum, _ = run("einsum", 0.5)
+    torch.testing.assert_close(y_ample, y_dense, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(y_drop, y_einsum, rtol=1e-4, atol=1e-4)
+    assert all(torch.equal(a, b) for a, b in zip(st_ample, st_dense))
+    _, ids, _ = M._route(params, cfg, x.reshape(-1, cfg.d_model))
+    plan = M._dispatch(ids, dataclasses.replace(cfg, capacity_factor=0.5),
+                       dropless=False)
+    assert int(plan.keep.sum()) < ids.numel()        # 0.5 drops pairs
+    assert not torch.equal(y_drop, y_ample)

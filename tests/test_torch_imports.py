@@ -60,6 +60,7 @@ def test_every_port_module_is_listed():
                 "configs.granite_moe_1b_a400m", "configs.qwen3_moe_235b_a22b",
                 "models", "models.config", "models.layers",
                 "models.attention", "models.transformer", "models.convert",
+                "models.moe",
                 "serving", "serving.engine", "serving.sampler", "launch",
                 "launch.serve", "core.annealing", "core.constrained",
                 "partitioners", "partitioners.baselines", "des",

@@ -1,7 +1,11 @@
 """The port's LM stack against the reference: layers, the parameter
 converter, and forward / prefill / decode on the smoke configs of the
 five dense variants (qkv bias; tied embeddings with multipliers; MQA; GQA
-with G=4; embedding inputs) and of mamba2 (the SSM family).
+with G=4; embedding inputs), of mamba2 (the SSM family), of
+granite-moe-1b-a400m and qwen3-moe-235b-a22b (the MoE family: prefill
+and forward drop tokens at the configs' capacities 1.5 and 1.25, decode
+is dropless) and of zamba2 (the hybrid: Mamba2 layers and a shared
+attention+MLP block after every second layer).
 
 Weights come from the reference's ``init_params(cfg, PRNGKey(0))``,
 converted by :func:`repro_torch.models.convert.params_from_reference`;
@@ -38,6 +42,7 @@ from repro_torch.models.convert import param_count, params_from_reference
 
 DENSE_VARIANTS = ["qwen1.5-4b", "minicpm-2b", "granite-34b",
                   "chameleon-34b", "musicgen-medium"]
+MOE_AND_HYBRID = ["granite-moe-1b-a400m", "qwen3-moe-235b-a22b", "zamba2-7b"]
 TOL = dict(rtol=1e-4, atol=1e-4)
 
 
@@ -105,13 +110,18 @@ def test_config_modules_are_the_references():
     assert tconfigs.get_config("qwen1.5-4b").pdtype() == torch.float32
 
 
-@pytest.mark.parametrize("arch", DENSE_VARIANTS + ["yi-34b", "mamba2-1.3b"])
+@pytest.mark.parametrize("arch", DENSE_VARIANTS + ["yi-34b", "mamba2-1.3b"]
+                         + MOE_AND_HYBRID)
 def test_converted_params_keep_param_count(arch):
+    """Every leaf of the reference's tree lands under its name (layer 1 of
+    the stacked blocks, the hybrid's shared block as it is); the count is
+    the config's, plus the shared block's for a hybrid."""
     jcfg, jparams, tcfg, tparams = _models(arch)
     assert len(tparams["blocks"]) == tcfg.num_layers
-    assert param_count(tparams) == tcfg.param_count()
+    count = tcfg.param_count() + tcfg.shared_block_params()
+    assert param_count(tparams) == count
     own = ttf.init_params(tcfg, torch.Generator().manual_seed(0))
-    assert param_count(own) == tcfg.param_count()
+    assert param_count(own) == count
     flat = jax.tree_util.tree_flatten_with_path(jparams)[0]
     for path, leaf in flat:
         keys = [p.key for p in path]
@@ -126,21 +136,26 @@ def test_converted_params_keep_param_count(arch):
 # forward, prefill, decode against the reference
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", DENSE_VARIANTS + ["mamba2-1.3b"])
+@pytest.mark.parametrize("arch", DENSE_VARIANTS + ["mamba2-1.3b"]
+                         + MOE_AND_HYBRID)
 def test_forward_prefill_decode_match_reference(arch):
     jcfg, jparams, tcfg, tparams = _models(arch)
     b, t = 2, 12
     jx, tx = _inputs(jcfg, b, t, seed=1)
-    jlogits, _ = jtf.forward_logits(jparams, jcfg, jx)
-    tlogits, _ = ttf.forward_logits(tparams, tcfg, tx)
+    jlogits, jaux = jtf.forward_logits(jparams, jcfg, jx)
+    tlogits, taux = ttf.forward_logits(tparams, tcfg, tx)
     _close(tlogits, jlogits)
+    for got, want in zip(taux, jaux):      # MoE statistics; zeros elsewhere
+        assert got.shape == np.asarray(want).shape
+        _close(got, want)
 
     jlast, jcache = jtf.prefill(jparams, jcfg, jx[:, :t - 3], max_len=t + 4)
     tlast, tcache = ttf.prefill(tparams, tcfg, tx[:, :t - 3], max_len=t + 4)
     assert tlast.shape == (b, 1, tcfg.vocab_size)
     _close(tlast, jlast)
-    names = ("ssm_state", "ssm_conv") if tcfg.family == "ssm" \
-        else ("kv_k", "kv_v")
+    names = {"ssm": ("ssm_state", "ssm_conv"),
+             "hybrid": ("kv_k", "kv_v", "ssm_state", "ssm_conv")}.get(
+                 tcfg.family, ("kv_k", "kv_v"))
     for name in names:
         _close(getattr(tcache, name), getattr(jcache, name))
     assert int(tcache.position) == int(jcache.position) == t - 3
@@ -150,7 +165,8 @@ def test_forward_prefill_decode_match_reference(arch):
         tstep, tcache = ttf.decode_step(tparams, tcfg, tx[:, step:step + 1],
                                         tcache)
         _close(tstep, jstep)
-        _close(tstep[:, 0], tlogits[:, step])
+        if tcfg.family != "moe":    # the forward drops at capacity
+            _close(tstep[:, 0], tlogits[:, step])
     for name in names:
         _close(getattr(tcache, name), getattr(jcache, name))
     assert torch.equal(torch.argmax(tstep, -1),
@@ -237,19 +253,9 @@ def test_cast_params_casts_matrices_and_keeps_norms():
     assert same["lm_head"] is params["lm_head"]
 
 
-@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "zamba2-7b",
-                                  "qwen3-moe-235b-a22b"])
-def test_other_families_are_not_ported_yet(arch):
-    cfg = tconfigs.get_smoke_config(arch)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        ttf.init_params(cfg, torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        ttf.init_cache(cfg, 1, 8, device="cpu")
-
-
 @pytest.mark.parametrize("build", ["init_cache", "init_kv_cache",
                                    "params_from_reference", "init_ssm_cache",
-                                   "init_cache_ssm"])
+                                   "init_cache_ssm", "init_cache_hybrid"])
 def test_builders_default_to_the_card(build, monkeypatch):
     """With no ``device``, the cache and parameter builders place their
     tensors on the package's default device (the card), through
@@ -267,6 +273,9 @@ def test_builders_default_to_the_card(build, monkeypatch):
     elif build == "init_cache_ssm":
         tensors = list(ttf.init_cache(
             tconfigs.get_smoke_config("mamba2-1.3b"), 2, 8)[2:])
+    elif build == "init_cache_hybrid":
+        tensors = list(ttf.init_cache(
+            tconfigs.get_smoke_config("zamba2-7b"), 2, 8))
     else:
         jparams = jtf.init_params(jconfigs.get_smoke_config("qwen1.5-4b"),
                                   jax.random.PRNGKey(0))
@@ -325,3 +334,142 @@ def test_ssm_plain_path_equals_kernel_path_on_the_cpu():
     fa, _ = ttf.forward_logits(params, cfg, tokens)
     fp, _ = ttf.forward_logits(params, cfg, tokens, ssm="plain")
     assert torch.equal(fa, fp)
+
+
+# ---------------------------------------------------------------------------
+# the MoE and hybrid families
+# ---------------------------------------------------------------------------
+
+def _ample(cfg):
+    """``cfg`` with an MoE capacity that drops nothing (8.0), so the
+    forward and decode route every token alike."""
+    return dataclasses.replace(cfg, capacity_factor=8.0) \
+        if cfg.family == "moe" else cfg
+
+
+@pytest.mark.parametrize("arch", MOE_AND_HYBRID)
+def test_moe_and_hybrid_decode_match_teacher_forced_forward(arch):
+    """Tokens one by one through decode_step from ``init_cache`` reproduce
+    the full causal forward at every position (the MoE at capacity 8.0),
+    and a prefill then one decode step continue it."""
+    _, _, cfg, params = _models(arch)
+    cfg = _ample(cfg)
+    b, t = 2, 12
+    _, tokens = _inputs(cfg, b, t, seed=3)
+    full, _ = ttf.forward_logits(params, cfg, tokens)
+    cache = ttf.init_cache(cfg, b, max_len=t + 4, dtype=torch.float32,
+                           device="cpu")
+    got = []
+    for step in range(t):
+        logits, cache = ttf.decode_step(params, cfg,
+                                        tokens[:, step:step + 1], cache)
+        got.append(logits[:, 0])
+    _close(torch.stack(got, dim=1), full.numpy())
+    last, cache = ttf.prefill(params, cfg, tokens[:, :t - 1], max_len=t + 4)
+    _close(last[:, 0], full[:, t - 2].numpy())
+    step, _ = ttf.decode_step(params, cfg, tokens[:, t - 1:], cache)
+    _close(step[:, 0], full[:, t - 1].numpy())
+
+
+@pytest.mark.parametrize("arch", MOE_AND_HYBRID)
+def test_moe_and_hybrid_plain_path_equals_kernel_path_on_the_cpu(arch):
+    """On CPU tensors the kernel adapters take the twins, so
+    ``attention="plain"`` and ``ssm="plain"`` give the same bits through
+    prefill, decode and forward_logits."""
+    _, _, cfg, params = _models(arch)
+    _, tokens = _inputs(cfg, 1, 19, seed=6)
+    a, ca = ttf.prefill(params, cfg, tokens, max_len=24)
+    p, cp = ttf.prefill(params, cfg, tokens, max_len=24, attention="plain",
+                        ssm="plain")
+    assert torch.equal(a, p)
+    for got, want in zip(ca, cp):
+        assert (got is None and want is None) or torch.equal(got, want)
+    nxt = tokens[:, :1]
+    a, _ = ttf.decode_step(params, cfg, nxt, ca)
+    p, _ = ttf.decode_step(params, cfg, nxt, cp, attention="plain")
+    assert torch.equal(a, p)
+    fa, aux_a = ttf.forward_logits(params, cfg, tokens)
+    fp, aux_p = ttf.forward_logits(params, cfg, tokens, attention="plain",
+                                   ssm="plain")
+    assert torch.equal(fa, fp)
+    assert all(torch.equal(x, y) for x, y in zip(aux_a, aux_p))
+
+
+def test_cast_params_keeps_the_router_in_f32():
+    """The router stays f32 (the reference routes in f32 on f32 weights;
+    rounding it would move the routing) while the experts go to bf16, so
+    one bf16 decode step on the cast parameters equals one on the uncast
+    ones."""
+    _, _, cfg, params = _models("granite-moe-1b-a400m")
+    cast = ttf.cast_params(params, torch.bfloat16)
+    moe = cast["blocks"][1]["moe"]
+    assert moe["router"].dtype == torch.float32
+    assert moe["router"] is params["blocks"][1]["moe"]["router"]
+    for name in ("gate", "up", "down"):
+        assert moe[name].dtype == torch.bfloat16
+    assert cast["blocks"][0]["attn"]["wq"].dtype == torch.bfloat16
+    cfg16 = dataclasses.replace(cfg, compute_dtype="bfloat16")
+    _, tokens = _inputs(cfg, 2, 7, seed=9)
+    steps = []
+    for p in (params, cast):
+        _, cache = ttf.prefill(p, cfg16, tokens[:, :6], max_len=16)
+        steps.append(ttf.decode_step(p, cfg16, tokens[:, 6:], cache)[0])
+    assert torch.equal(steps[0], steps[1])
+
+
+def test_hybrid_init_and_cache_shapes():
+    """zamba2 smoke: Mamba2 blocks, one shared block applied after layers
+    1 and 3 (attn_period 2), a KV cache of 2 entries beside 4 layers' SSM
+    states; the shared block is the one attention in the model."""
+    cfg = tconfigs.get_smoke_config("zamba2-7b")
+    params = ttf.init_params(cfg, torch.Generator().manual_seed(0))
+    assert sorted(params["blocks"][0]) == ["norm", "ssm"]
+    assert sorted(params["shared"]) == ["attn", "attn_norm", "ffn_norm",
+                                        "mlp"]
+    assert ttf._attention_layer_index(cfg) == \
+        np.asarray(jtf._attention_layer_index(
+            jconfigs.get_smoke_config("zamba2-7b"))).tolist() == [0, 0, 0, 1]
+    assert [ttf._shared_after(cfg, l) for l in range(4)] == \
+        [False, True, False, True]
+    cache = ttf.init_cache(cfg, 3, 8, dtype=torch.bfloat16, device="cpu")
+    assert cfg.attention_layers == 2
+    assert cache.kv_k.shape == cache.kv_v.shape == (
+        2, 3, 8, cfg.num_kv_heads, cfg.head_dim)
+    assert cache.kv_k.dtype == torch.bfloat16
+    assert cache.ssm_state.shape == (cfg.num_layers, 3, cfg.ssm_heads,
+                                     cfg.ssm_head_dim, cfg.ssm_state)
+    assert cache.ssm_conv.shape == (cfg.num_layers, 3, cfg.ssm_conv - 1,
+                                    cfg.d_inner + 2 * cfg.ssm_state)
+    _, tokens = _inputs(cfg, 1, 5, seed=2)
+    with pytest.raises(ValueError, match="max_len"):
+        ttf.prefill(params, cfg, tokens, max_len=4)
+
+
+def test_moe_init_and_stats_shapes():
+    cfg = tconfigs.get_smoke_config("qwen3-moe-235b-a22b")
+    params = ttf.init_params(cfg, torch.Generator().manual_seed(0))
+    block = params["blocks"][0]
+    assert sorted(block) == ["attn", "attn_norm", "ffn_norm", "moe"]
+    e, d, f = cfg.num_experts, cfg.d_model, cfg.d_ff
+    assert block["moe"]["router"].shape == (d, e)
+    assert block["moe"]["down"].shape == (e, f, d)
+    _, tokens = _inputs(cfg, 2, 9, seed=4)
+    _, (aux, load, coact) = ttf.forward_logits(params, cfg, tokens)
+    assert aux.shape == () and load.shape == (e,) and coact.shape == (e, e)
+    assert abs(float(load.sum()) - cfg.top_k) < 1e-5
+    assert torch.equal(coact, coact.T)
+    assert float(torch.diagonal(coact).abs().sum()) == 0.0
+
+
+@pytest.mark.parametrize("entry", ["init_params", "init_cache", "prefill"])
+def test_an_unknown_family_raises(entry):
+    cfg = dataclasses.replace(tconfigs.get_smoke_config("qwen1.5-4b"),
+                              family="rnn")
+    with pytest.raises(ValueError, match="unknown family"):
+        if entry == "init_params":
+            ttf.init_params(cfg, torch.Generator().manual_seed(0))
+        elif entry == "init_cache":
+            ttf.init_cache(cfg, 1, 8, device="cpu")
+        else:
+            ttf.prefill({"embed": torch.zeros(cfg.vocab_size, cfg.d_model)},
+                        cfg, torch.zeros((1, 3), dtype=torch.int64), 8)

@@ -2,8 +2,9 @@
 
 Weights come from the reference's ``init_params(cfg, PRNGKey(0))``,
 converted; requests from ``numpy.random.default_rng``.  Both engines run
-greedy decoding on the f32 smoke configs (dense, and mamba2 for the SSM
-family) with f32 caches, so they must agree exactly on every token and on
+greedy decoding on the f32 smoke configs (dense, mamba2 for the SSM
+family, granite-moe-1b-a400m for the MoE family and zamba2 for the
+hybrid) with f32 caches, so they must agree exactly on every token and on
 the number of decode steps and prefills.  The idle-slot test holds the
 port's decode logits against the reference's at rtol = atol = 1e-4 (f32,
 see ``test_torch_models.py``).
@@ -107,6 +108,33 @@ def test_ssm_engine_matches_reference_engine():
         assert tstats[key] == jstats[key], key
     assert {r.uid: r.output for r in teng.finished} == \
         {r.uid: r.output for r in jeng.finished}
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "zamba2-7b"])
+def test_moe_and_hybrid_engines_match_reference_engine(arch):
+    """The MoE (prefill at the config's capacity, dropless decode) and the
+    hybrid (KV and SSM fields in one cache) through both engines: more
+    requests than slots, so slots are reused, prompts from 1 token (shorter
+    than the conv window) to longer than a group and a chunk; every
+    token, decode step and prefill equal."""
+    jcfg, jparams, tcfg, tparams = _models(arch)
+    serve = dict(max_batch=3, max_len=64, cache_dtype="float32")
+    jeng = JServingEngine(jcfg, jparams, JServeConfig(**serve))
+    teng = ServingEngine(tcfg, tparams, ServeConfig(**serve))
+    rng = np.random.default_rng(13)
+    for uid, s in enumerate((1, 2, 37, 3, 20, 9, 17, 30)):
+        prompt = rng.integers(0, jcfg.vocab_size, s).astype(np.int32)
+        n = int(rng.integers(1, 12))
+        jeng.submit(JRequest(uid, prompt, max_new_tokens=n))
+        teng.submit(Request(uid, prompt, max_new_tokens=n))
+    jstats, tstats = jeng.run(), teng.run()
+    assert tstats["prefills"] == 8 > serve["max_batch"]
+    for key in ("requests", "decode_steps", "prefills", "generated_tokens"):
+        assert tstats[key] == jstats[key], key
+    assert {r.uid: r.output for r in teng.finished} == \
+        {r.uid: r.output for r in jeng.finished}
+    if tcfg.family == "hybrid":
+        assert teng.cache.kv_k is not None and teng.cache.ssm_state is not None
 
 
 def test_ssm_slot_reuse_overwrites_the_state():
@@ -275,6 +303,18 @@ def test_serve_driver_runs_mamba2_on_the_cpu():
         [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
          "mamba2-1.3b", "--device", "cpu", "--requests", "5", "--max-new",
          "4", "--slots", "2", "--max-len", "64"],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "5 requests | 20 tokens" in out.stdout
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "zamba2-7b"])
+def test_serve_driver_runs_moe_and_hybrid_on_the_cpu(arch):
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", arch,
+         "--device", "cpu", "--requests", "5", "--max-new", "4", "--slots",
+         "2", "--max-len", "64"],
         cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert "5 requests | 20 tokens" in out.stdout
