@@ -8,9 +8,11 @@ continuous-batching engine), the SSM serving path (mamba2-1.3b at full
 width, the same traffic) and the paper's Time-Warp DES with periodic
 refinement (N=2048, K=16; a fleet of 8 at N=1024), the distributed
 refinement runtime with its faults (16 shards of the dense instance),
-run telemetry on those paths, and the MoE and hybrid serving paths
-(granite-moe-1b-a400m and zamba2-7b at full width, the same traffic),
-times every kernel, and checks the results.
+run telemetry on those paths, the MoE and hybrid serving paths
+(granite-moe-1b-a400m and zamba2-7b at full width, the same traffic), and
+training with the expert planner (granite-moe-1b-a400m and mamba2-1.3b at
+full width through ``launch.train``), times every kernel, and checks the
+results.
 
   python3 chip_smoke.py          # needs one CUDA card and nvcc
 
@@ -143,8 +145,9 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      and one tick's device launches;
  21. the DES fleet and the remaining core — ``run_simulation_batch`` over 8
      scenarios at N=1024 (graphs, workloads and churn from seeds 0-7),
-     refining through kernel 3, every element bitwise its lone run on
-     kernel 1; then on a dense N=4096, K=16 problem: ``refine``,
+     refining through kernel 3, the whole run bitwise kernel 3's twin path,
+     elements 0 and 7 bitwise their lone runs on kernel 1 (all eight
+     take ~90 s); then on a dense N=4096, K=16 problem: ``refine``,
      ``simulated_annealing`` (2048 steps), ``equalize_cardinality`` and
      ``count_discrepancies`` over 512 traced ct turns, each checked and
      timed;
@@ -210,6 +213,27 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      metrics and a profiled window; (b) kernel 8 against its twin at (1,
      3072, 112, 64, 64) in bf16 within ``SSD_TOL``, and its time; (c) the
      f32 parity of the kernel path (kernels 6-8) and the plain path.
+ 26. full-width MoE training — granite-moe-1b-a400m's published config
+     (f32 parameters, bf16 compute, remat) trained through
+     ``repro_torch.launch.train.train`` for 12 steps of 8 x 1024 tokens
+     from seed 0, replanning the experts over 4 groups every 4 steps:
+     (a) kernel 7 at the training shape (8, 1024, 16, 8, 64) bf16 against
+     its twin, kernel 1 at the planner's (32, 4) and (24, 4) bitwise; (b)
+     at f32 compute and 2 layers of full width, ``forward_train``'s loss
+     and every gradient on the kernel path (kernels forward, the plain
+     formula backward) against the twins under autograd, within 1e-4; (c)
+     every loss finite and the last below the first; each replan's
+     imbalance, moves and kernel-1 launches, its permutation bitwise
+     ``expert_placement`` on the CPU from the same statistics, layer 0's
+     MoE block at f32 unchanged across it within 2e-4; ms a step, trained
+     tokens/s, peak memory; (d) kernel 7 launched 2 x 24 times every step
+     (remat), no twin; (e) checkpoints at steps 6 and 12, the latter taken
+     away, a fresh ``train`` on the directory resumes at 6 and ends on the
+     uninterrupted state bitwise (params, Adam moments, statistics), with
+     two of its steps profiled for the device's busy share;
+ 27. full-width SSM training — mamba2-1.3b the same way without the
+     planner: kernel 8 at (8, 1024, 64, 64, 128) bf16 against its twin,
+     (b), kernel 8 launched 2 x 48 times every step, (e).
 
 Each path's launch counts are set to 0 just before it and read just after.
 The line before the last two is the kernels' JSON record; then the card's
@@ -359,6 +383,9 @@ DES_FLEET_THREADS = 24
 DES_FLEET_REFINE_FREQ = 512
 DES_FLEET_TURNS = 512
 DES_FLEET_CHURN = (32, 256)
+# fleet elements also run alone (all 8 took ~90 s; the first and the last
+# keep the batched == looped check inside the script's time limit)
+DES_FLEET_LONE = (0, DES_FLEET_B - 1)
 # phase 22: the distributed slice on phase 3's instance, one shard per
 # machine (the reference's default); the fault plan is
 # tests/test_faults.py::_mixed_plan's, scaled to S and K
@@ -387,6 +414,20 @@ HYBRID_ARCH = "zamba2-7b"
 MOE_TOL = 1e-4
 MOE_TIMED_ITERS = 10
 
+# phases 26-27: training at full width (launch.train.train), the
+# expert planner on granite's router statistics
+TRAIN_STEPS = 12
+TRAIN_BATCH = 8
+TRAIN_SEQ = 1024
+TRAIN_REPLAN = 4            # replans at steps 4, 8 and 12
+TRAIN_GROUPS = 4            # expert groups the planner balances over
+TRAIN_CKPT_EVERY = 6        # (e): resume from step 6 of the 12
+TRAIN_PARITY_LAYERS = 2     # (b): f32, full width, kernel vs plain autograd
+TRAIN_GRAD_TOL = 1e-4       # (b): max |g_k - g_p| / max |g_p| over leaves
+PLANNER_MOE_TOL = 2e-4      # (c): the reference's budget, test_planner.py
+PLANNER_MOE_TOKENS = 1024   # (c): tokens through layer 0's MoE block
+TRAIN_PROFILE_STEPS = (8, 9)  # (e): steps of the resumed run profiled
+
 # H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s, f32 FLOP/s
 # outside the tensor cores, dense bf16 FLOP/s on the tensor cores
 
@@ -395,7 +436,12 @@ PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
 
 
+_START = time.perf_counter()
+
+
 def log(*args) -> None:
+    if args and str(args[0]).startswith("== "):    # a phase's header
+        args = (*args, f"[{time.perf_counter() - _START:.1f} s in]")
     print(*args, flush=True)
 
 
@@ -2648,8 +2694,8 @@ def phase_des(D, card):
 
 def phase_des_fleet(D, card):
     """``run_simulation_batch`` over a fleet, refinement through kernel 3;
-    the whole run again on kernel 3's twin, bitwise; every element bitwise
-    its lone run (kernel 1)."""
+    the whole run again on kernel 3's twin, bitwise; the elements in
+    ``DES_FLEET_LONE`` bitwise their lone runs (kernel 1)."""
     from repro_torch.core.batch import stack_pytrees, unstack_pytree
     from repro_torch.des import engine, scenarios
     from repro_torch.kernels.ops import make_aggregate_dissat_fn_plain
@@ -2717,6 +2763,8 @@ def phase_des_fleet(D, card):
     for b, (_, adj, s0, churn, spec) in enumerate(elements):
         got = unstack_pytree(fleet, b)
         _des_checks(f"fleet element {b}", got, adj, spec)
+        if b not in DES_FLEET_LONE:
+            continue
         sync()
         t0 = time.perf_counter()
         lone = engine.run_simulation(cfg, adj, s0, churn)
@@ -2726,7 +2774,8 @@ def phase_des_fleet(D, card):
         differ = des_differ(lone, got)
         if differ:
             fail(f"fleet element {b} differs from its lone run in {differ}")
-    log(f"  every element bitwise its lone run (kernel 1); lone runs "
+    log(f"  elements {DES_FLEET_LONE} bitwise their lone runs (kernel 1); "
+        f"lone runs "
         f"{lone_ticks / lone_wall:.1f} element-ticks/s against the fleet's "
         f"{sum(ticks) / wall:.1f}")
     return {"launches": launches, "ticks": ticks,
@@ -3618,6 +3667,382 @@ def phase_hybrid(A, F, S8, card):
             "k8_ms": k8, "f32_rel": rel32}
 
 
+# ---------------------------------------------------------------------------
+# phases 26-27: training at full width
+# ---------------------------------------------------------------------------
+
+def _train_counts(mods) -> dict:
+    """Every launch and twin counter of ``mods``, by name."""
+    out = {}
+    for mod in mods:
+        out.update(mod.launches)
+        out.update(getattr(mod, "twin_calls", {}))
+    return out
+
+
+def _train_kernel_checks(F, S8, D, cfg, card):
+    """(a): the kernels of the training path against their twins at the
+    shapes the path gives them: kernel 7 at (B, S, H, Hkv, D) bf16, kernel
+    8 at (B, S, H, P, N) bf16; with an MoE, kernel 1 at the planner's
+    (experts, groups) and (layers, groups), bitwise."""
+    errs = {}
+    b, s = TRAIN_BATCH, TRAIN_SEQ
+    if cfg.attention_layers:
+        h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        q, k, v = _attn_inputs(((b, s, h, hd), (b, s, hkv, hd),
+                                (b, s, hkv, hd)), 26, torch.bfloat16)
+        got = F.flash_attention_cuda(q, k, v)
+        errs["flash_attention"] = _attn_err(
+            got, F.flash_attention_twin(q, k, v), torch.bfloat16,
+            f"kernel 7 at {(b, s, h, hkv, hd)} bf16")
+        log(f"  (a) kernel 7 (B, S, H, Hkv, D)={(b, s, h, hkv, hd)} bf16 vs "
+            f"twin: max |diff| {errs['flash_attention']:.3e} (tolerance "
+            f"{ATTN_TOL[torch.bfloat16]})")
+        del q, k, v, got
+    if cfg.family in ("ssm", "hybrid"):
+        shape = (b, s, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state)
+        x, dt, a, bm, cm = _ssd_inputs(*shape, torch.bfloat16, 27)
+        got = S8.ssd_scan_cuda(x, dt, a, bm, cm)
+        want = S8.ssd_scan_twin(x, dt, a, bm, cm, cfg.ssm_chunk)
+        errs["ssd_scan"] = max(_ssd_err(got[0], want[0], f"kernel 8 y {shape}"),
+                               _ssd_err(got[1], want[1],
+                                        f"kernel 8 state {shape}"))
+        log(f"  (a) kernel 8 (B, L, H, P, N)={shape} bf16 vs twin: max |diff| "
+            f"{errs['ssd_scan']:.3e} (tolerance {SSD_TOL} x max(1, max "
+            f"|want|))")
+        del x, dt, a, bm, cm, got, want
+    if cfg.num_experts:
+        rng = np.random.default_rng(SEED + 26)
+        errs["dissat_from_aggregate"] = max(
+            check_kernel1(D, *_random_rows(rng, n, TRAIN_GROUPS), label=lab)
+            for n, lab in ((cfg.num_experts, "planner (experts, groups)"),
+                           (cfg.num_layers, "planner (layers, stages)")))
+    torch.cuda.empty_cache()
+    return errs
+
+
+def _train_grad_parity(cfg, mods) -> dict:
+    """(b): f32 compute, ``TRAIN_PARITY_LAYERS`` layers of full width:
+    ``forward_train``'s loss and every gradient on the kernel path (the
+    kernels forward, the plain formula backward) against the plain path
+    (the twins under autograd), same weights, same batch."""
+    import dataclasses
+
+    from repro_torch.models import init_params
+    from repro_torch.training.data import SyntheticDataConfig, synthetic_batch
+    from repro_torch.training.train_step import value_and_grad
+    from repro_torch.training.tree import flatten
+    cfg2 = dataclasses.replace(cfg, num_layers=TRAIN_PARITY_LAYERS,
+                               compute_dtype="float32")
+    params = init_params(cfg2, torch.Generator(device="cuda").manual_seed(
+        SEED))
+    batch = synthetic_batch(SyntheticDataConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+        global_batch=TRAIN_BATCH, seed=SEED, input_kind=cfg.input_kind,
+        d_model=cfg.d_model), 0, device="cuda")
+    for mod in mods:
+        mod.reset_launches()
+    lk, _, gk = value_and_grad(params, cfg2, batch)
+    kernel_counts = _train_counts(mods)
+    lp, _, gp = value_and_grad(params, cfg2, batch, attention="plain",
+                               ssm="plain")
+    torch.cuda.synchronize()
+    worst, worst_path = 0.0, ""
+    for path, a, b in zip(*flatten(gk), flatten(gp)[1]):
+        rel = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+        if not bool(torch.isfinite(a).all()):
+            fail(f"(b) non-finite gradient at {path}")
+        if rel >= worst:
+            worst, worst_path = rel, path
+    loss_rel = abs(float(lk) - float(lp)) / abs(float(lp))
+    log(f"  (b) f32, {TRAIN_PARITY_LAYERS} layers of full width, batch "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ}: loss kernel path {float(lk):.6f}, "
+        f"plain {float(lp):.6f} (rel {loss_rel:.3e}); gradients max |diff| "
+        f"/ max |g| {worst:.3e} at {worst_path} over "
+        f"{len(flatten(gk)[1])} leaves (gate {TRAIN_GRAD_TOL}); kernel "
+        f"path launches {kernel_counts}")
+    if not (worst <= TRAIN_GRAD_TOL and loss_rel <= TRAIN_GRAD_TOL):
+        fail("(b) the kernel path's loss or gradients differ from the plain "
+             "path's beyond the gate")
+    del params, gk, gp
+    torch.cuda.empty_cache()
+    return {"grad_rel": worst, "loss_rel": loss_rel}
+
+
+class _TrainProbe:
+    """Instruments ``repro_torch.launch.train`` for one phase: each step is
+    timed between syncs with its launch counts, a window of consecutive
+    steps runs under the profiler (device activity only: a step's CPU-side
+    events made the trace's processing take ~30 s), checkpoint I/O is
+    timed, and each replan is recorded and checked on the CPU."""
+
+    def __init__(self, T, mods, D, cfg):
+        self.T, self.mods, self.D, self.cfg = T, mods, D, cfg
+        self.steps, self.replans, self.io = [], [], []
+        self.profile_at: tuple = ()
+        self.profile = None       # (steps, wall s, device s, top kernels)
+        self._prof = None
+
+    def __enter__(self):
+        T, probe = self.T, self
+        ck = T.checkpoint
+        self.real = (T.make_train_step, T.PartitionPlanner, ck.save,
+                     ck.restore)
+        real_step, real_planner, real_save, real_restore = self.real
+
+        def timed(label, fn):
+            def call(*args, **kwargs):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*args, **kwargs)
+                torch.cuda.synchronize()
+                probe.io.append((label, time.perf_counter() - t0))
+                return out
+            return call
+        ck.save = timed("save", real_save)
+        ck.restore = timed("restore", real_restore)
+
+        def make_train_step(cfg, hyper, **kw):
+            fn = real_step(cfg, hyper, **kw)
+
+            def step(state, batch):
+                at = int(state.step)
+                torch.cuda.synchronize()
+                before = _train_counts(probe.mods)
+                if probe.profile_at and at == probe.profile_at[0]:
+                    probe.start_profile()
+                t0 = time.perf_counter()
+                out = fn(state, batch)
+                torch.cuda.synchronize()
+                if probe.profile_at and at == probe.profile_at[-1]:
+                    probe.stop_profile()
+                after = _train_counts(probe.mods)
+                probe.steps.append((at, time.perf_counter() - t0, {
+                    k: after[k] - before[k] for k in after}))
+                return out
+            return step
+
+        class Planner(real_planner):
+            def maybe_replan(self, step, state):
+                return probe.replan(super().maybe_replan, self, step, state)
+
+        T.make_train_step, T.PartitionPlanner = make_train_step, Planner
+        return self
+
+    def start_profile(self):
+        from torch.profiler import ProfilerActivity, profile
+        self._prof = profile(activities=[ProfilerActivity.CUDA])
+        self._prof.__enter__()
+        self._prof_t0 = time.perf_counter()
+
+    def stop_profile(self):
+        wall = time.perf_counter() - self._prof_t0
+        self._prof.__exit__(None, None, None)
+        events = [e for e in self._prof.key_averages()
+                  if str(getattr(e, "device_type", "")).endswith("CUDA")]
+        device_s = sum(e.self_device_time_total for e in events) / 1e6
+        top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
+        self.profile = (self.profile_at, wall, device_s, top)
+        self._prof = None
+
+    def __exit__(self, *exc):
+        ck = self.T.checkpoint
+        (self.T.make_train_step, self.T.PartitionPlanner, ck.save,
+         ck.restore) = self.real
+        return False
+
+    def replan(self, real, planner, step, state):
+        """A replan on the card, then the same statistics through
+        ``expert_placement`` on the CPU: the permutation bitwise, the
+        stats equal; the MoE block's f32 map kept across the
+        permutation."""
+        import dataclasses
+
+        from repro_torch.models.moe import moe_block
+        from repro_torch.sharding.planner import expert_placement
+        load, coact = state.expert_load.cpu(), state.coactivation.cpu()
+        k1 = self.D.launches["dissat_from_aggregate"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        new, stats = real(step, state)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if stats is None:
+            return new, stats
+        moved = new is not state
+        e = load.shape[0]
+        perm = planner._last_perm.cpu() if moved \
+            else torch.arange(e, dtype=torch.int32)
+        cpu_perm, _, cpu_stats = expert_placement(load, coact,
+                                                  planner.num_groups,
+                                                  mu=planner.mu)
+        same_stats = cpu_stats["moves"] == stats["moves"] and all(
+            math.isclose(cpu_stats[k], stats[k], rel_tol=1e-6)
+            for k in ("imbalance_before", "imbalance_after"))
+        if not torch.equal(perm, cpu_perm) or not same_stats:
+            fail(f"(c) replan at step {step}: the card's permutation "
+                 f"{perm.tolist()} / stats {stats} differ from the CPU's "
+                 f"{cpu_perm.tolist()} / {cpu_stats}")
+        moe_err = None
+        if moved:
+            cfg32 = dataclasses.replace(self.cfg, compute_dtype="float32")
+            g = torch.Generator(device="cuda").manual_seed(SEED + step)
+            x = torch.randn((1, PLANNER_MOE_TOKENS, self.cfg.d_model),
+                            generator=g, device="cuda")
+            y0, _ = moe_block(state.params["blocks"][0]["moe"], cfg32, x)
+            y1, _ = moe_block(new.params["blocks"][0]["moe"], cfg32, x)
+            diff = (y1 - y0).abs()
+            moe_err = float(diff.max())
+            if bool((diff > PLANNER_MOE_TOL * (1 + y0.abs())).any()):
+                fail(f"(c) replan at step {step}: the MoE block's output "
+                     f"moved by {moe_err} across the permutation")
+        self.replans.append({
+            "step": step, "stats": stats, "moved": moved,
+            "perm": perm.tolist(), "k1": self.D.launches[
+                "dissat_from_aggregate"] - k1, "ms": 1e3 * wall,
+            "moe_err": moe_err})
+        return new, stats
+
+
+def _steady(probe_steps, start: int):
+    """(ms a step, launches a step) over the timed steps past ``start``."""
+    rows = [(t, c) for at, t, c in probe_steps if at > start]
+    ms = 1e3 * sum(t for t, _ in rows) / len(rows)
+    return ms, rows[-1][1]
+
+
+def phase_train(arch: str, F, S8, D, card, planner: bool):
+    """Phases 26-27: ``arch`` trained at its published widths through
+    ``repro_torch.launch.train.train`` (a)-(e); see the docstring."""
+    import os
+    import shutil
+    import tempfile
+
+    from repro_torch import configs
+    from repro_torch.launch import train as T
+    from repro_torch.models.convert import param_count
+    from repro_torch.training.tree import flatten
+    cfg = configs.get_config(arch)
+    mods = (F, S8, D)
+    n_attn = cfg.attention_layers
+    n_ssm = cfg.num_layers if cfg.family in ("ssm", "hybrid") else 0
+    log(f"  {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"vocab {cfg.vocab_size}, params {cfg.param_dtype}, compute "
+        f"{cfg.compute_dtype}, remat {cfg.remat}; batch {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ} = {TRAIN_BATCH * TRAIN_SEQ} tokens a step")
+    errs = _train_kernel_checks(F, S8, D, cfg, card)
+    parity = _train_grad_parity(cfg, mods)
+
+    kw = dict(smoke=False, steps=TRAIN_STEPS, global_batch=TRAIN_BATCH,
+              seq_len=TRAIN_SEQ, replan=TRAIN_REPLAN if planner else 0,
+              groups=TRAIN_GROUPS if planner else 1, log_every=1, seed=SEED,
+              device="cuda")
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        # (c)-(d): the uninterrupted run, checkpoints at 6 and 12
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for mod in mods:
+            mod.reset_launches()
+        t0 = time.perf_counter()
+        with _TrainProbe(T, mods, D, cfg) as probe:
+            straight, losses = T.train(arch, ckpt_dir=ckpt,
+                                       ckpt_every=TRAIN_CKPT_EVERY, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        launches = _train_counts(mods)
+        n_params = param_count(straight.params)
+        ms, per_step = _steady(probe.steps, 0)
+        tok_s = TRAIN_BATCH * TRAIN_SEQ / (ms / 1e3)
+        log(f"  (c) {TRAIN_STEPS} steps in {wall:.1f} s (checkpoints and "
+            f"replans included): {n_params} parameters, losses "
+            f"{[round(x, 4) for x in losses]}; {ms:.1f} ms a step over steps "
+            f"1-{TRAIN_STEPS - 1} (step 0 {1e3 * probe.steps[0][1]:.1f} ms), "
+            f"{tok_s:.1f} trained tokens/s; peak memory {peak / 2**30:.2f} "
+            f"GiB [{card}]")
+        if n_params != cfg.param_count() + cfg.shared_block_params():
+            fail(f"(c) {n_params} parameters, the config counts "
+                 f"{cfg.param_count()}")
+        if not all(math.isfinite(x) for x in losses) \
+                or not losses[-1] < losses[0]:
+            fail(f"(c) losses not finite and falling: {losses}")
+        for r in probe.replans:
+            st = r["stats"]
+            log(f"  (c) replan at step {r['step']}: imbalance "
+                f"{st['imbalance_before']:.4f} -> {st['imbalance_after']:.4f}"
+                f", {st['moves']} moves, permuted {r['moved']}, kernel 1 "
+                f"launched {r['k1']} times, {r['ms']:.1f} ms; permutation "
+                f"{r['perm']} == expert_placement on the CPU, bitwise"
+                + (f"; MoE block f32 max |diff| across it {r['moe_err']:.3e} "
+                   f"(tolerance {PLANNER_MOE_TOL})"
+                   if r["moe_err"] is not None else ""))
+        if planner:
+            if [r["step"] for r in probe.replans] != list(range(
+                    TRAIN_REPLAN, TRAIN_STEPS + 1, TRAIN_REPLAN)):
+                fail(f"(c) replans at {[r['step'] for r in probe.replans]}")
+            if sum(r["k1"] for r in probe.replans) == 0 \
+                    or launches["dissat_from_aggregate"] != sum(
+                        r["k1"] for r in probe.replans):
+                fail(f"(c) kernel 1 launches {launches}")
+        # (d): launches a step, every step
+        want = {"flash_attention": 2 * n_attn if cfg.remat else n_attn,
+                "ssd_scan": 2 * n_ssm if cfg.remat else n_ssm,
+                "flash_attention_twin": 0, "ssd_scan_twin": 0}
+        for at, _, counts in probe.steps:
+            if any(counts[k] != n for k, n in want.items()):
+                fail(f"(d) step {at} launched {counts}, want {want}")
+        log(f"  (d) every step: kernel 7 {want['flash_attention']}, kernel 8 "
+            f"{want['ssd_scan']} launches (remat: each layer's forward runs "
+            f"again in the backward), no twin; the run: {launches}")
+
+        # (e): the step-12 checkpoint taken away, a fresh train() resumes
+        # from step 6 and must end on the uninterrupted state bitwise
+        shutil.rmtree(os.path.join(ckpt, f"step_{TRAIN_STEPS:08d}"))
+        for mod in mods:
+            mod.reset_launches()
+        t0 = time.perf_counter()
+        with _TrainProbe(T, mods, D, cfg) as probe2:
+            probe2.profile_at = TRAIN_PROFILE_STEPS
+            resumed, tail = T.train(arch, ckpt_dir=ckpt,
+                                    ckpt_every=TRAIN_STEPS + 1, **kw)
+        torch.cuda.synchronize()
+        wall2 = time.perf_counter() - t0
+        paths, a = flatten(straight)
+        _, b = flatten(resumed)
+        differ = [p for p, x, y in zip(paths, a, b) if not _bits_equal(x, y)]
+        if differ or tail != losses[TRAIN_CKPT_EVERY:]:
+            fail(f"(e) the resumed run differs from the uninterrupted one: "
+                 f"{len(differ)} leaves ({differ[:4]}), losses {tail} vs "
+                 f"{losses[TRAIN_CKPT_EVERY:]}")
+        steps_p, pwall, pdev, top = probe2.profile
+        busy = pdev / pwall
+        log(f"  (e) resumed from step {TRAIN_CKPT_EVERY} to {TRAIN_STEPS} in "
+            f"{wall2:.1f} s (restore included): all {len(paths)} leaves "
+            f"(params, Adam moments, count, step, router statistics) "
+            f"bitwise the uninterrupted run's, losses equal; steps "
+            f"{steps_p} under the profiler: {1e3 * pwall:.1f} ms of wall, "
+            f"{1e3 * pdev:.1f} ms on the device, busy share {busy:.4f} "
+            f"[{card}]")
+        io = probe.io + probe2.io
+        log(f"  (e) checkpoint I/O (16 GB-class f32 state, npz on the "
+            f"machine's disk): "
+            + ", ".join(f"{label} {t:.1f} s" for label, t in io))
+        log(f"  (e) steps {steps_p}' heaviest device kernels (profiler, "
+            f"self device time):")
+        for ev in top:
+            log(f"    {ev.key[:70]:70s} {ev.count:6d} x "
+                f"{ev.self_device_time_total / max(ev.count, 1):10.2f} us")
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    del straight, resumed
+    torch.cuda.empty_cache()
+    return {"errs": errs, "parity": parity, "launches": launches,
+            "per_step": per_step, "ms": ms, "tok_s": tok_s, "peak": peak,
+            "busy": busy, "replans": probe.replans + probe2.replans,
+            "io": io}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke run needs one GPU")
@@ -3805,6 +4230,25 @@ def main() -> int:
                            "ssd_scan"):
             rec["moe_launches"] = moe_run["launches"][rec["name"]]
             rec["hybrid_launches"] = hybrid_run["launches"][rec["name"]]
+    log(f"== phase 26: {MOE_ARCH} training at full width (launch.train: "
+        f"kernel 7 forward, the expert planner on kernel 1)")
+    t0 = time.perf_counter()
+    train_moe = phase_train(MOE_ARCH, F, S8, D, card, planner=True)
+    log(f"  phase 26: {time.perf_counter() - t0:.1f} s")
+    log(f"== phase 27: {SSM_ARCH} training at full width (launch.train: "
+        f"kernel 8 forward)")
+    t0 = time.perf_counter()
+    train_ssm = phase_train(SSM_ARCH, F, S8, D, card, planner=False)
+    log(f"  phase 27: {time.perf_counter() - t0:.1f} s")
+    for rec in kernels:
+        name = rec["name"]
+        if name in ("flash_attention", "ssd_scan", "dissat_from_aggregate"):
+            rec["train_launches"] = {MOE_ARCH: train_moe["launches"][name],
+                                     SSM_ARCH: train_ssm["launches"][name]}
+        for run in (train_moe, train_ssm):
+            if name in run["errs"]:
+                rec["max_abs_err"] = max(rec["max_abs_err"],
+                                         run["errs"][name])
     log(f"  total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -30,6 +30,7 @@ number of device launches inside (:data:`DEVICE_LAUNCHES`).
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 import torch.nn.functional as nnf
@@ -81,8 +82,10 @@ def ssd_scan_twin(x, dt, a, bm, cm, chunk: int, init_state=None):
         dtc = dt[:, t0:t0 + q].permute(0, 2, 1)           # (B, H, Q)
         bc, cc = bm[:, t0:t0 + q], cm[:, t0:t0 + q]       # (B, Q, N)
         cum = torch.cumsum(dtc * a[None, :, None], dim=-1)
-        decay = torch.exp(cum[..., :, None] - cum[..., None, :])
-        lmat = torch.where(causal, decay, 0.0)            # (B, H, Q, Q)
+        # masked before the exp: the same values as where(causal,
+        # exp(.), 0), and no inf above the diagonal for autograd to meet
+        lmat = torch.exp(torch.where(
+            causal, cum[..., :, None] - cum[..., None, :], -math.inf))
         cb = (cc @ bc.transpose(-1, -2))[:, None]         # (B, 1, Q, Q)
         scores = cb * lmat * dtc[..., None, :]
         y_diag = scores @ xc

@@ -3,7 +3,9 @@
 weights are random, from the seed.  All four families serve: dense
 (``--arch qwen1.5-4b``, ...), MoE (``--arch granite-moe-1b-a400m``,
 ``qwen3-moe-235b-a22b``), SSM (``--arch mamba2-1.3b``) and hybrid
-(``--arch zamba2-7b``); smoke width unless ``--full``.
+(``--arch zamba2-7b``); smoke width unless ``--full``.  With
+``--ckpt-dir`` the weights are the ``params`` of the newest checkpoint
+that ``repro_torch.launch.train`` wrote there.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-4b \\
       --requests 16 --max-new 24 --slots 4 --device cpu
@@ -25,13 +27,21 @@ from repro_torch import configs
 from repro_torch.models import init_params
 from repro_torch.serving import Request, ServeConfig, ServingEngine
 from repro_torch.serving.sampler import sample_logits
+from repro_torch.training import checkpoint
 
 
 def serve(arch: str, *, smoke: bool = True, requests: int = 16,
           max_new: int = 24, slots: int = 4, max_len: int = 256,
-          temperature: float = 0.0, seed: int = 0, device: str = "cuda"):
+          temperature: float = 0.0, ckpt_dir: str | None = None,
+          seed: int = 0, device: str = "cuda"):
     cfg = configs.get_smoke_config(arch) if smoke else configs.get_config(arch)
     params = init_params(cfg, torch.Generator(device=device).manual_seed(seed))
+    if ckpt_dir:
+        restored, step = checkpoint.restore(ckpt_dir, params,
+                                            prefix="params")
+        if restored is not None:
+            params = restored
+            print(f"[serve] loaded checkpoint step {step}")
 
     sampler = None
     if temperature > 0:
@@ -69,17 +79,15 @@ def main(argv=None):
     ap.add_argument("--max-len", type=int, default=256)
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--ckpt-dir", default=None,
-                    help="not supported yet: checkpoints come with the "
-                         "port's training slice")
+                    help="serve the params of the newest checkpoint of "
+                         "repro_torch.launch.train in this directory")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.ckpt_dir:
-        ap.error("--ckpt-dir is not supported yet: checkpoints come with "
-                 "the port's training slice")
     serve(args.arch, smoke=args.smoke, requests=args.requests,
           max_new=args.max_new, slots=args.slots, max_len=args.max_len,
-          temperature=args.temperature, seed=args.seed, device=args.device)
+          temperature=args.temperature, ckpt_dir=args.ckpt_dir,
+          seed=args.seed, device=args.device)
 
 
 if __name__ == "__main__":

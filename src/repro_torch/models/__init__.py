@@ -8,6 +8,7 @@ from .transformer import (  # noqa: F401
     cast_params,
     decode_step,
     forward_logits,
+    forward_train,
     init_cache,
     init_params,
     prefill,

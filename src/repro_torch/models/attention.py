@@ -5,7 +5,11 @@ Both paths run the port's kernels: the prefill's causal core is kernel 7
 (:func:`repro_torch.kernels.ops.flash_attention`), the decode step's
 attention kernel 6 (:func:`repro_torch.kernels.ops.decode_attention`).
 On CPU tensors those adapters take the kernels' plain twins; pass
-``attention="plain"`` to take the twins on the card too.  The kernels keep
+``attention="plain"`` to take the twins on the card too.  Under autograd
+(an input of the core requires a gradient) the core runs kernel 7
+through :class:`_FlashAttention`, whose backward recomputes the
+reference's formula (:func:`_causal_core_plain`) with plain PyTorch
+operations: no backward kernel, no twin.  The kernels keep
 the probabilities in f32 where the reference rounds them to the compute
 dtype before P·V, so the two agree to float rounding at f32 compute and
 to bf16 rounding at bf16.  The reference's sharding hints are dropped
@@ -13,8 +17,10 @@ to bf16 rounding at bf16.  The reference's sharding hints are dropped
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..core.problem import resolve_device
@@ -74,6 +80,43 @@ def _project_qkv(params: dict, cfg: ModelConfig, x: torch.Tensor,
     return q, k, v.reshape(b, s, hkv, hd)
 
 
+def _causal_core_plain(q, k, v) -> torch.Tensor:
+    """The reference's causal core (``repro/models/attention.py:79-114``,
+    one query block) in plain PyTorch, its probabilities kept in f32 as
+    kernel 7 keeps them: the function whose gradient the training path
+    takes.  Builds the S x S logits."""
+    b, s, h, d = q.shape
+    hkv = k.shape[2]
+    scale = float(np.float32(1.0) / np.sqrt(np.float32(d)))
+    logits = torch.einsum("bqhgd,bkhd->bhgqk",
+                          q.to(torch.float32).reshape(b, s, hkv, h // hkv, d),
+                          k.to(torch.float32)) * scale
+    pos = torch.arange(s, device=q.device)
+    logits = torch.where(pos[:, None] >= pos[None, :], logits, -math.inf)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v.to(torch.float32))
+    return out.reshape(b, s, h, d).to(q.dtype)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Kernel 7 in a differentiable graph: the forward is the prefill's
+    adapter (``ops.flash_attention``: the kernel on the card, its twin on
+    CPU tensors); the backward takes the gradient of
+    :func:`_causal_core_plain` recomputed from the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        ctx.save_for_backward(q, k, v)
+        return ops.flash_attention(q, k, v)
+
+    @staticmethod
+    def backward(ctx, grad):
+        inputs = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = _causal_core_plain(*inputs)
+        return torch.autograd.grad(out, inputs, grad)
+
+
 def _causal_core(q, k, v, cfg: ModelConfig, q_chunks: int | None = None,
                  attention: str = "kernel") -> torch.Tensor:
     """Causal softmax attention.  q: (B,S,H,D), k/v: (B,S,Hkv,D) ->
@@ -82,9 +125,13 @@ def _causal_core(q, k, v, cfg: ModelConfig, q_chunks: int | None = None,
     S x S logits."""
     del cfg, q_chunks
     _check_path(attention)
-    fn = ops.flash_attention if attention == "kernel" \
-        else flash_attention_twin
-    return fn(q.contiguous(), k.contiguous(), v.contiguous())
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if attention == "plain":
+        return flash_attention_twin(q, k, v)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v)
+    return ops.flash_attention(q, k, v)
 
 
 def causal_attention(params: dict, cfg: ModelConfig, x: torch.Tensor,

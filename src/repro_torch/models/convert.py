@@ -9,6 +9,10 @@ as an MoE's ``moe/{router,gate,up,down}`` included) split into a list of
 per-layer dicts; other top-level entries, such as a hybrid's ``shared``
 block, keep their nesting.  Values are copied exactly; bfloat16 leaves pass
 through float32, which holds every bfloat16 value.
+
+``train_state_from_reference(state)`` does the same for a
+``repro.training.TrainState`` (numpy leaves): its params and Adam moments
+split per layer, its count, step and router statistics as they are.
 """
 from __future__ import annotations
 
@@ -58,3 +62,21 @@ def param_count(params) -> int:
     if isinstance(params, dict):
         return sum(param_count(p) for p in params.values())
     return params.numel()
+
+
+def train_state_from_reference(state, device=None):
+    """The port's ``TrainState`` from the reference's (any object with its
+    fields ``params``, ``opt.mu``, ``opt.nu``, ``opt.count``, ``step``,
+    ``expert_load``, ``coactivation``, numpy leaves), on ``device``
+    (default: the card)."""
+    from ..training.optimizer import AdamWState
+    from ..training.train_step import TrainState
+    device = resolve_device(device)
+    return TrainState(
+        params=params_from_reference(state.params, device),
+        opt=AdamWState(mu=params_from_reference(state.opt.mu, device),
+                       nu=params_from_reference(state.opt.nu, device),
+                       count=_tensor(state.opt.count, device)),
+        step=_tensor(state.step, device),
+        expert_load=_tensor(state.expert_load, device),
+        coactivation=_tensor(state.coactivation, device))

@@ -5,7 +5,10 @@ decode.
 ``ssm_block`` sends its scan through kernel 8
 (:func:`repro_torch.kernels.ops.ssd_scan`); on CPU tensors that adapter
 takes the kernel's plain twin, and ``ssm="plain"`` takes the twin on the
-card too.  ``ssd_chunked`` is the reference's own jnp formulation, ported
+card too.  Under autograd (an input of the scan requires a gradient) the
+scan runs kernel 8 through :class:`_SSDScan`, whose backward recomputes
+``ssd_chunked`` with plain PyTorch operations: no backward kernel, no
+twin.  ``ssd_chunked`` is the reference's own jnp formulation, ported
 as it is: the tests' oracle.  ``ssm_decode_step`` is plain PyTorch (one
 rank-1 state update per head; the reference has no decode kernel).
 
@@ -116,7 +119,12 @@ def ssd_chunked(x, dt, a, bm, cm, chunk: int, init_state=None):
     seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]     # (B,nc,Qi,Qj,H)
     causal = torch.tril(torch.ones((q, q), dtype=torch.bool,
                                    device=x.device))
-    decay = torch.where(causal[None, None, :, :, None], torch.exp(seg), 0.0)
+    # the reference's where(causal, exp(seg), 0), with the mask applied
+    # before the exp: the same values, but the masked exponents (positive,
+    # past exp's range at real decays) no longer meet a zero cotangent as
+    # inf, which made the gradient NaN
+    decay = torch.exp(torch.where(causal[None, None, :, :, None], seg,
+                                  -math.inf))
 
     cb = torch.einsum("bcin,bcjn->bcij", cmc, bmc)          # (B,nc,Q,Q)
     scores = cb[..., None] * decay * dtc[:, :, None, :, :]  # (B,nc,Qi,Qj,H)
@@ -147,6 +155,45 @@ def _check_path(ssm: str) -> None:
         raise ValueError(f"ssm must be one of {SSM_PATHS}; got {ssm!r}")
 
 
+class _SSDScan(torch.autograd.Function):
+    """Kernel 8 in a differentiable graph: the forward is the prefill's
+    adapter (``ops.ssd_scan``: the kernel on the card, its twin on CPU
+    tensors); the backward takes the gradient of :func:`ssd_chunked`, the
+    reference's formulation, recomputed from the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, bm, cm, chunk, init_state):
+        ctx.chunk = chunk
+        ctx.save_for_backward(x, dt, a, bm, cm, init_state)
+        return ops.ssd_scan(x, dt, a, bm, cm, chunk, init_state)
+
+    @staticmethod
+    def backward(ctx, grad_y, grad_state):
+        saved = [None if t is None else t.detach().requires_grad_(True)
+                 for t in ctx.saved_tensors]
+        x, dt, a, bm, cm, init_state = saved
+        with torch.enable_grad():
+            out = ssd_chunked(x, dt, a, bm, cm, ctx.chunk, init_state)
+        live = [t for t in saved if t is not None]
+        grads = iter(torch.autograd.grad(out, live, (grad_y, grad_state),
+                                         allow_unused=True))
+        x, dt, a, bm, cm, init_state = (None if t is None else next(grads)
+                                        for t in saved)
+        return x, dt, a, bm, cm, None, init_state
+
+
+def _scan(xh, dt, a, bm, cm, cfg: ModelConfig, init_state, ssm: str):
+    """The SSD scan of ``ssm_block`` on kernel 8 (differentiable when an
+    input requires a gradient), or its twin for ``ssm="plain"``."""
+    args = (xh, dt.contiguous(), a, bm.contiguous(), cm.contiguous())
+    if ssm == "plain":
+        return ssd_scan_twin(*args, cfg.ssm_chunk, init_state)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in args + (init_state,)):
+        return _SSDScan.apply(*args, cfg.ssm_chunk, init_state)
+    return ops.ssd_scan(*args, cfg.ssm_chunk, init_state)
+
+
 def ssm_block(params: dict, cfg: ModelConfig, u: torch.Tensor,
               init_state=None, *, return_conv_tail: bool = False,
               ssm: str = "kernel"):
@@ -161,9 +208,7 @@ def ssm_block(params: dict, cfg: ModelConfig, u: torch.Tensor,
     z, x, bm, cm, dt, xbc_pre = _split_proj(params, cfg, u)
     a = -torch.exp(params["A_log"])
     xh = x.reshape(b, seq, h, p).contiguous()
-    scan = ops.ssd_scan if ssm == "kernel" else ssd_scan_twin
-    y, final = scan(xh, dt.contiguous(), a, bm.contiguous(),
-                    cm.contiguous(), cfg.ssm_chunk, init_state)
+    y, final = _scan(xh, dt, a, bm, cm, cfg, init_state, ssm)
     y = y + params["D"][None, None, :, None] * xh.to(torch.float32)
     y = y.reshape(b, seq, cfg.d_inner).to(u.dtype)
     y = rms_norm(y * F.silu(z), params["gate_norm"], cfg.rms_eps)

@@ -15,6 +15,7 @@ one ``shared`` attention+MLP block after every layer l with
 
 Public entry points:
   * init_params(cfg, generator)                  -> params
+  * forward_train(params, cfg, batch)            -> loss, metrics
   * forward_logits(params, cfg, inputs)          -> logits, aux
   * prefill(params, cfg, inputs, max_len)        -> last logits, cache
   * decode_step(params, cfg, inputs, cache)      -> logits, cache
@@ -29,13 +30,21 @@ plain PyTorch.  An MoE block drops (token, slot) pairs past the config's
 capacity in ``forward_logits`` and ``prefill`` and is dropless in
 ``decode_step``, as the reference.  ``decode_step`` writes the new keys
 and values, SSM states and conv windows into the cache in place.
-``forward_train`` comes with the port's training slice.
+
+``forward_train`` is the training loss.  Under autograd the kernels stay
+in the forward and their backward recomputes the plain formula
+(:mod:`repro_torch.models.attention`, :mod:`repro_torch.models.ssm`);
+with ``cfg.remat`` each layer runs under
+``torch.utils.checkpoint.checkpoint`` (the reference's ``jax.checkpoint``
+of its scanned block), so its kernels run twice a step.  A path that
+records no gradient runs exactly the ops it ran before.
 """
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..core.problem import resolve_device
 from .attention import (KVCache, _causal_core, _project_qkv,
@@ -200,6 +209,48 @@ def _no_aux(cfg: ModelConfig, device):
             torch.zeros((e, e), device=device))
 
 
+def _mamba_layer(params: dict, cfg: ModelConfig, layer: int, x,
+                 attention: str, ssm: str):
+    """Mamba2 layer ``layer`` on the full sequence, and a hybrid's shared
+    block after it where it applies."""
+    block = params["blocks"][layer]
+    h, _ = ssm_block(block["ssm"], cfg,
+                     rms_norm(x, block["norm"], cfg.rms_eps), ssm=ssm)
+    x = _residual(x, h, cfg)
+    if _shared_after(cfg, layer):
+        x, _ = _attention_block(params["shared"], cfg, x, attention)
+    return x
+
+
+def _records(x, params: dict, layer: int) -> bool:
+    """Whether autograd records layer ``layer``: grad mode is on and its
+    input or a weight it reads requires a gradient."""
+    if not torch.is_grad_enabled():
+        return False
+    stack = [x, params["blocks"][layer], params.get("shared", {})]
+    while stack:
+        node = stack.pop()
+        if isinstance(node, dict):
+            stack.extend(node.values())
+        elif node.requires_grad:
+            return True
+    return False
+
+
+def _layer(fn, params: dict, cfg: ModelConfig, layer: int, x, *args):
+    """``fn(params, cfg, layer, x, *args)``, under activation
+    checkpointing when ``cfg.remat`` and autograd records the layer."""
+    if cfg.remat and _records(x, params, layer):
+        return checkpoint(fn, params, cfg, layer, x, *args,
+                          use_reentrant=False)
+    return fn(params, cfg, layer, x, *args)
+
+
+def _dense_layer(params: dict, cfg: ModelConfig, layer: int, x,
+                 attention: str):
+    return _attention_block(params["blocks"][layer], cfg, x, attention)
+
+
 def backbone(params: dict, cfg: ModelConfig, x, attention: str = "kernel",
              ssm: str = "kernel"):
     """The blocks in order.  x: (B, S, d) -> (B, S, d), aux stats: an
@@ -207,17 +258,13 @@ def backbone(params: dict, cfg: ModelConfig, x, attention: str = "kernel",
     over them and its co-activation counts summed; zeros for the other
     families."""
     if _mamba_layers(cfg):
-        for layer, block in enumerate(params["blocks"]):
-            h, _ = ssm_block(block["ssm"], cfg,
-                             rms_norm(x, block["norm"], cfg.rms_eps),
-                             ssm=ssm)
-            x = _residual(x, h, cfg)
-            if _shared_after(cfg, layer):
-                x, _ = _attention_block(params["shared"], cfg, x, attention)
+        for layer in range(len(params["blocks"])):
+            x = _layer(_mamba_layer, params, cfg, layer, x, attention, ssm)
         return x, _no_aux(cfg, x.device)
     stats = []
-    for block in params["blocks"]:
-        x, layer_stats = _attention_block(block, cfg, x, attention)
+    for layer in range(len(params["blocks"])):
+        x, layer_stats = _layer(_dense_layer, params, cfg, layer, x,
+                                attention)
         stats.append(layer_stats)
     if cfg.family != MOE:
         return x, _no_aux(cfg, x.device)
@@ -249,6 +296,26 @@ def forward_logits(params: dict, cfg: ModelConfig, inputs,
     x, aux = backbone(params, cfg, x, attention, ssm)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
     return unembed(params, cfg, x), aux
+
+
+def forward_train(params: dict, cfg: ModelConfig, batch: dict,
+                  attention: str = "kernel", ssm: str = "kernel"):
+    """batch: {"inputs": ids or embeddings, "targets": (B, S) ids, and an
+    optional "mask" (B, S)}.  Returns (loss, metrics dict): the masked
+    mean cross-entropy plus ``router_aux_coef`` times an MoE's auxiliary
+    loss, and the router's statistics."""
+    logits, (aux_loss, expert_load, coact) = forward_logits(
+        params, cfg, batch["inputs"], attention, ssm)
+    logp = torch.log_softmax(logits, dim=-1)
+    targets = batch["targets"].to(torch.int64)
+    nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
+    mask = batch.get("mask")
+    if mask is None:
+        mask = torch.ones_like(nll)
+    ce = torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    loss = ce + cfg.router_aux_coef * aux_loss
+    return loss, {"ce": ce, "aux_loss": aux_loss,
+                  "expert_load": expert_load, "coactivation": coact}
 
 
 def _prefill_attention(block: dict, cfg: ModelConfig, x, kv, slot: int,

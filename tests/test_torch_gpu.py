@@ -1227,3 +1227,132 @@ def test_moe_block_scatter_matches_dense_on_the_card(card):
                        dropless=False)
     assert int(plan.keep.sum()) < ids.numel()        # 0.5 drops pairs
     assert not torch.equal(y_drop, y_ample)
+
+
+# ---------------------------------------------------------------------------
+# training: the kernel path's gradients, determinism, resume, the planner
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen1.5-4b", "granite-moe-1b-a400m",
+                                  "mamba2-1.3b", "zamba2-7b"])
+def test_train_kernel_path_gradients_match_plain_path(card, arch):
+    """Smoke configs at f32 compute on the card: ``forward_train``'s loss
+    and every gradient with kernels 7/8 in the forward (the plain formula
+    backward) against the twins under autograd, within 1e-4 of each leaf's
+    largest magnitude; the kernel path launches each kernel twice a layer
+    (remat) and calls no twin."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as F
+    from repro_torch.kernels import ssd_scan as S8
+    from repro_torch.models import transformer as T
+    from repro_torch.training.data import SyntheticDataConfig, synthetic_batch
+    from repro_torch.training.train_step import value_and_grad
+    from repro_torch.training.tree import flatten
+
+    cfg = dataclasses.replace(configs.get_smoke_config(arch),
+                              compute_dtype="float32")
+    params = T.init_params(cfg, torch.Generator(device=card).manual_seed(0))
+    batch = synthetic_batch(SyntheticDataConfig(
+        vocab_size=cfg.vocab_size, seq_len=96, global_batch=2), 0,
+        device=card)
+    for mod in (F, S8):
+        mod.reset_launches()
+    lk, _, gk = value_and_grad(params, cfg, batch)
+    mamba = cfg.family in ("ssm", "hybrid")
+    assert F.launches == {"flash_attention": 2 * cfg.attention_layers}
+    assert S8.launches == {"ssd_scan": 2 * cfg.num_layers if mamba else 0}
+    assert not any(F.twin_calls.values()) and not any(S8.twin_calls.values())
+    lp, _, gp = value_and_grad(params, cfg, batch, attention="plain",
+                               ssm="plain")
+    assert abs(float(lk) - float(lp)) <= 1e-5 * abs(float(lp))
+    for path, a, b in zip(*flatten(gk), flatten(gp)[1]):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max()), \
+            path
+
+
+@pytest.mark.gpu
+def test_train_steps_on_the_card_are_deterministic(card):
+    """Three bf16-compute steps of the MoE smoke config from one state,
+    twice: bitwise equal states (the embedding's and the MoE gathers'
+    backward accumulate in a fixed order)."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.training.data import SyntheticDataConfig, synthetic_batch
+    from repro_torch.training.train_step import (TrainHyper, init_train_state,
+                                                 make_train_step)
+    from repro_torch.training.tree import flatten
+
+    cfg = dataclasses.replace(configs.get_smoke_config(
+        "granite-moe-1b-a400m"), compute_dtype="bfloat16")
+    step = make_train_step(cfg, TrainHyper(total_steps=10, warmup=1))
+    data = SyntheticDataConfig(vocab_size=cfg.vocab_size, seq_len=64,
+                               global_batch=4)
+    runs = []
+    for _ in range(2):
+        state = init_train_state(cfg, 0, device=card)
+        for i in range(3):
+            state, _ = step(state, synthetic_batch(data, i, device=card))
+        runs.append(flatten(state))
+    for path, a, b in zip(*runs[0], runs[1][1]):
+        assert torch.equal(a, b), path
+
+
+@pytest.mark.gpu
+def test_train_driver_resumes_bitwise_on_the_card(card, tmp_path):
+    """``launch.train`` on the card: 4 steps with checkpoints every 2 and
+    replans every 2 (kernel 1), the step-4 checkpoint taken away, a fresh
+    run resumes at step 2 and ends bitwise on the uninterrupted state."""
+    import os
+
+    from repro_torch.kernels import dissatisfaction as D
+    from repro_torch.launch.train import train
+    from repro_torch.training.tree import flatten
+
+    kw = dict(steps=4, global_batch=4, seq_len=64, replan=2, groups=2,
+              device="cuda")
+    d = str(tmp_path / "ckpt")
+    D.reset_launches()
+    straight, losses = train("granite-moe-1b-a400m", ckpt_dir=d,
+                             ckpt_every=2, **kw)
+    assert D.launches["dissat_from_aggregate"] > 0
+    os.rename(os.path.join(d, "step_00000004"), str(tmp_path / "step4"))
+    resumed, tail = train("granite-moe-1b-a400m", ckpt_dir=d,
+                          ckpt_every=100, **kw)
+    assert tail == losses[2:]
+    for path, a, b in zip(*flatten(straight), flatten(resumed)[1]):
+        assert a.device.type == "cuda" and torch.equal(a, b), path
+
+
+@pytest.mark.gpu
+def test_planner_on_the_card_equals_the_cpu(card):
+    """``expert_placement`` (kernel 1 each refinement turn) and
+    ``stage_assignment`` on the card give the CPU twin path's
+    permutation, assignment and moves."""
+    from repro_torch.kernels import dissatisfaction as D
+    from repro_torch.sharding import expert_placement, stage_assignment
+
+    rng = np.random.default_rng(0)
+    load = rng.uniform(0.01, 0.3, 32).astype(np.float32)
+    coact = rng.uniform(0, 50, (32, 32)).astype(np.float32)
+    coact = np.triu(coact, 1)
+    coact = coact + coact.T
+    current = np.arange(32, dtype=np.int32) // 8
+    D.reset_launches()
+    got = expert_placement(torch.from_numpy(load).to(card),
+                           torch.from_numpy(coact).to(card), 4,
+                           current=torch.from_numpy(current).to(card))
+    assert D.launches["dissat_from_aggregate"] > 0
+    want = expert_placement(torch.from_numpy(load), torch.from_numpy(coact),
+                            4, current=torch.from_numpy(current))
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+    assert got[2]["moves"] == want[2]["moves"]
+    cost = rng.uniform(1.0, 3.0, 24).astype(np.float32)
+    a, game, dp = stage_assignment(cost, 128.0, 4)
+    b, game_cpu, dp_cpu = stage_assignment(cost, 128.0, 4, device="cpu")
+    assert a.device.type == "cuda" and torch.equal(a.cpu(), b)
+    assert (game, dp) == (game_cpu, dp_cpu)

@@ -34,14 +34,14 @@ def test_port_imports_no_jax_and_no_reference():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     report = json.loads(out.stdout.strip().splitlines()[-1])
-    assert report["modules"] >= 72
+    assert report["modules"] >= 82
     assert report["imported"] == []
 
 
 def test_every_port_module_is_listed():
     """The probe above walks the package; make sure the walk sees the
-    kernel, core, model, serving, launch, partitioner, DES, distributed
-    and telemetry modules the slices ship."""
+    kernel, core, model, serving, launch, partitioner, DES, distributed,
+    telemetry, training and planner modules the slices ship."""
     names = {m.name for m in pkgutil.walk_packages(
         [str(REPO / "src" / "repro_torch")], "repro_torch.")}
     for mod in ("core.problem", "core.costs", "core.aggregate",
@@ -69,7 +69,11 @@ def test_every_port_module_is_listed():
                 "distributed.protocol", "distributed.accounting",
                 "distributed.faults", "distributed.runtime", "obs",
                 "obs.events", "obs.sinks", "obs.recorder", "obs.report",
-                "obs.rows"):
+                "obs.rows", "training", "training.data",
+                "training.optimizer", "training.train_step",
+                "training.checkpoint", "training.compression",
+                "training.tree", "sharding", "sharding.planner",
+                "launch.train"):
         assert f"repro_torch.{mod}" in names
 
 
@@ -122,3 +126,27 @@ def test_obs_exports_the_reference_names():
     assert sorted(port.__all__) == sorted(want)
     for name in want:
         assert hasattr(port, name), name
+
+
+def test_training_and_sharding_export_the_reference_names():
+    """``repro_torch.training`` and ``repro_torch.sharding`` export the
+    reference's public names (the sharding rules wait for a later slice:
+    the planner's four names), and ``models`` has ``forward_train``."""
+    import ast
+    sys.path.insert(0, str(REPO / "src"))
+    import repro_torch.models as models
+    import repro_torch.sharding as sharding
+    import repro_torch.training as training
+
+    def imported(pkg):
+        tree = ast.parse((REPO / "src" / "repro" / pkg
+                          / "__init__.py").read_text())
+        return {alias.name for node in tree.body
+                if isinstance(node, ast.ImportFrom) for alias in node.names}
+
+    for name in imported("training"):
+        assert hasattr(training, name), name
+    for name in ("PartitionPlanner", "expert_placement", "stage_assignment",
+                 "apply_expert_permutation"):
+        assert hasattr(sharding, name), name
+    assert callable(models.forward_train)
