@@ -3,7 +3,7 @@ holds each against its plain PyTorch twin, drives the dense partition game
 end to end at N=16384, K=16, the sparse sweep runtime at the reference's
 million-node instance (N=10^6, E=9,002,624, K=8), the batched fleets
 (32 dense problems of N=4096, K=16; 4 sparse ones of N=65536, K=8), the
-dense LM serving path (qwen1.5-4b at full width, 48 requests through the
+dense LM serving path (qwen1.5-4b at full width, 32 requests through the
 continuous-batching engine), the SSM serving path (mamba2-1.3b at full
 width, the same traffic) and the paper's Time-Warp DES with periodic
 refinement (N=2048, K=16; a fleet of 8 at N=1024), the distributed
@@ -11,7 +11,9 @@ refinement runtime with its faults (16 shards of the dense instance),
 run telemetry on those paths, the MoE and hybrid serving paths
 (granite-moe-1b-a400m and zamba2-7b at full width, the same traffic), and
 training with the expert planner (granite-moe-1b-a400m and mamba2-1.3b at
-full width through ``launch.train``), times every kernel, and checks the
+full width through ``launch.train``), the three LM examples
+(``moe_expert_rebalance``, ``train_lm`` with its restart, and temperature
+sampling on qwen1.5-4b at full width), times every kernel, and checks the
 results.
 
   python3 chip_smoke.py          # needs one CUDA card and nvcc
@@ -66,7 +68,7 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      of 256 batched turns;
  12. the sparse fleet — 4 weightings of ``random_degree_graph_edges(65536,
      seed=0)``: kernel 3 bitwise against its twin and kernel 1 on the
-     fleet's initial sparse carry; 2048 batched ``refine`` turns, each
+     fleet's initial sparse carry; 1024 batched ``refine`` turns, each
      element bitwise its looped run; then the same cases under ``mode="multimove"``
      (unbounded, move_prob 0.5, ε=1e-3, 24 sweeps), each bitwise a lone
      ``refine_sweeps`` with the generator derived for its index;
@@ -88,9 +90,9 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      d_model 2560, vocab 151936, f32 parameters, bf16 compute), weights
      from ``init_params`` with a seeded generator on the card,
      ``ServeConfig(max_batch=16, max_len=4096, cache_dtype="bfloat16")``,
-     48 greedy requests with prompts of 512-3072 tokens from
+     32 greedy requests with prompts of 512-3072 tokens from
      ``default_rng(0)`` and 64 new tokens each: every request complete,
-     every logit finite, kernel 7 launched 40 x 48 times, kernel 6 40 x
+     every logit finite, kernel 7 launched 40 x 32 times, kernel 6 40 x
      decode steps, no twin; prefill tokens/s, ms per decode step,
      generated tok/s, and a profiled window of 8 decode steps;
  15. kernel path vs plain path at full width — one bf16 decode step of
@@ -100,8 +102,10 @@ Phases (any failure exits non-zero; there is no CPU fallback):
  16. attention times — kernels 6 and 7 at the serving shapes beside their
      bound, their twins and ``scaled_dot_product_attention``, measured in
      turns; the device time of each from CUDA events around a loop that
-     only calls the kernel's C entry point; kernel 6's split, blocks
-     launched and live blocks at the serving shape, and its time at
+     only calls the kernel's C entry point; kernel 6 on phase 14's cache
+     at a fixed state (16 full slots, lengths ``DECODE_TIMED_LENGTHS``, a
+     request's prompt plus its 64 new tokens each), its split, blocks
+     launched and live blocks there, and its time at
      yi-34b's heads (16, 56, 8, 128, 4096) for information; kernel 7's f32
      instance at the same shape;
  17. kernel 8 (the SSD scan) vs its twin on the card — (B, L, H, P, N) =
@@ -139,8 +143,8 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      ``refine_freq=2048``, ``refine_max_turns=1024``: the refined run
      (kernel 1 every refinement turn) and a static run, both to drain with
      nothing dropped or evicted and every thread seen by exactly its hop
-     closure; the first 4 refinement rounds again on kernel 1's plain twin,
-     every ``DESState`` field bitwise equal; 512 ticks replayed from CUDA
+     closure; the first 2 refinement rounds again on kernel 1's plain twin,
+     every ``DESState`` field bitwise equal; 256 ticks replayed from CUDA
      graphs against eager ticks, bitwise; a profiled window of 64 ticks
      and one tick's device launches;
  21. the DES fleet and the remaining core — ``run_simulation_batch`` over 8
@@ -171,18 +175,18 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      down to the end raises ``DeadShardError``; (f)
      ``refine_distributed_shard_map`` on a one-rank NCCL group, kernel 1
      each turn, bitwise (a); (g) phase 20's DES with
-     ``refine_backend="distributed"`` over its first 4 refinement rounds,
+     ``refine_backend="distributed"`` over its first 2 refinement rounds,
      every ``DESState`` field bitwise phase 20's single-backend rounds.
  23. run telemetry (``repro_torch.obs``) on the instances above: (a) phase
      3's game under a ``Recorder`` with a ``JsonlSink``, bitwise phase 3,
      one ``turn`` event a turn, ``python -m repro_torch.obs.report
-     --check`` exit 0; then its first 1024 turns without, with, with and
+     --check`` exit 0; then its first 256 turns without, with, with and
      without a recorder: ms per turn, and the host syncs (counted under
      ``torch.cuda.set_sync_debug_mode("warn")``) — the only ones the
      recorder adds being its two reads of the card, before and after the
      loop;
      (b) ``make_timed_dissat_fn`` around kernel 1 for 256 turns: 256
-     ``phase`` spans, bitwise the unwrapped run; (c) phase 20's first 4
+     ``phase`` spans, bitwise the unwrapped run; (c) phase 20's first 2
      refinement rounds under a recorder: every ``DESState`` field bitwise
      phase 20's, tick rows on the stride, 4 ``des_refine`` events,
      ``--check``, ms per tick with and without; (d) phase 22 (a) under a
@@ -194,7 +198,7 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      d_ff 512 with top-8 routing in groups of 512 at capacity 1.25, vocab
      49155, tied embeddings, f32 parameters, bf16 compute), phase 14's
      ``ServeConfig`` and traffic: (a) every request complete, every logit
-     finite, kernel 7 launched 24 x 48 times, kernel 6 24 x decode steps,
+     finite, kernel 7 launched 24 x 32 times, kernel 6 24 x decode steps,
      no twin; prefill tokens/s, ms per decode step, generated tok/s, a
      profiled window of 8 decode steps; (b) layer 0's MoE block on the MoE
      input of a 3072-token prompt at f32: scatter at capacity 8.0 against
@@ -208,15 +212,15 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      layers, d_model 3584, 112 SSM heads of 64, state 64, chunk 256; one
      shared attention+MLP block, 32 heads of 112, d_ff 14336, applied
      after every 6th layer, 13 times; vocab 32000, bf16 parameters and
-     compute), the same traffic: (a) kernel 8 launched 81 x 48 times,
-     kernel 7 13 x 48 and kernel 6 13 x decode steps, no twin; the serving
+     compute), the same traffic: (a) kernel 8 launched 81 x 32 times,
+     kernel 7 13 x 32 and kernel 6 13 x decode steps, no twin; the serving
      metrics and a profiled window; (b) kernel 8 against its twin at (1,
      3072, 112, 64, 64) in bf16 within ``SSD_TOL``, and its time; (c) the
      f32 parity of the kernel path (kernels 6-8) and the plain path.
  26. full-width MoE training — granite-moe-1b-a400m's published config
      (f32 parameters, bf16 compute, remat) trained through
-     ``repro_torch.launch.train.train`` for 12 steps of 8 x 1024 tokens
-     from seed 0, replanning the experts over 4 groups every 4 steps:
+     ``repro_torch.launch.train.train`` for 6 steps of 8 x 1024 tokens
+     from seed 0, replanning the experts over 4 groups every 2 steps:
      (a) kernel 7 at the training shape (8, 1024, 16, 8, 64) bf16 against
      its twin, kernel 1 at the planner's (32, 4) and (24, 4) bitwise; (b)
      at f32 compute and 2 layers of full width, ``forward_train``'s loss
@@ -227,13 +231,30 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      ``expert_placement`` on the CPU from the same statistics, layer 0's
      MoE block at f32 unchanged across it within 2e-4; ms a step, trained
      tokens/s, peak memory; (d) kernel 7 launched 2 x 24 times every step
-     (remat), no twin; (e) checkpoints at steps 6 and 12, the latter taken
-     away, a fresh ``train`` on the directory resumes at 6 and ends on the
+     (remat), no twin; (e) checkpoints at steps 3 and 6, the latter taken
+     away, a fresh ``train`` on the directory resumes at 3 and ends on the
      uninterrupted state bitwise (params, Adam moments, statistics), with
      two of its steps profiled for the device's busy share;
  27. full-width SSM training — mamba2-1.3b the same way without the
      planner: kernel 8 at (8, 1024, 64, 64, 128) bf16 against its twin,
      (b), kernel 8 launched 2 x 48 times every step, (e).
+ 28. the LM examples — (a) ``repro_torch.moe_expert_rebalance`` (qwen3-moe
+     smoke, 60 steps, the data shift at step 30, replans over 4 groups at
+     mu 0.5 at steps 15, 30, 45 and 60): each replan's permutation and
+     stats bitwise ``expert_placement`` on the CPU from the same router
+     statistics, kernel 7 launched 60 x its layers, kernel 1 in the
+     replans, no twin; (b) ``repro_torch.train_lm --steps 40
+     --demo-restart`` in a temp dir (the ~115M granite-moe-100m config,
+     8 x 256 tokens a step, replans over 4 groups at 10, 20 and 25, each
+     checked as phase 26 checks its replans): the second run resumes at
+     step 20, every loss finite; ms a step, trained tokens/s, checkpoint
+     sizes and I/O; (c) ``launch.serve.serve("qwen1.5-4b", smoke=False,
+     temperature=0.8, requests=8, max_new=32)`` twice (the same tokens)
+     and greedy (different tokens), kernel 7 launched 40 x prefills and
+     kernel 6 40 x decode steps, no twin; then 2^17 card draws of
+     ``sample_logits`` from one logits row (V = 1024) at T = 0.8 without
+     and with top_k 50, the total-variation distance from softmax(logits /
+     T) within its bound at 10^-6 and no draw outside the top-k.
 
 Each path's launch counts are set to 0 just before it and read just after.
 The line before the last two is the kernels' JSON record; then the card's
@@ -288,14 +309,14 @@ FLEET_PROFILE_TURNS = 256
 SPARSE_FLEET_B = 4
 SPARSE_FLEET_N = 65536
 SPARSE_FLEET_K = 8
-SPARSE_FLEET_TURNS = 2048
+SPARSE_FLEET_TURNS = 1024
 SPARSE_FLEET_SWEEPS = 24
 
 # the dense LM serving path: qwen1.5-4b's published config unchanged
 LM_ARCH = "qwen1.5-4b"
 SERVE_SLOTS = 16
 SERVE_MAX_LEN = 4096
-SERVE_REQUESTS = 48
+SERVE_REQUESTS = 32         # cut for the script's time limit
 SERVE_PROMPT = (512, 3072)  # prompt lengths, uniform, from default_rng(SEED)
 SERVE_NEW = 64
 PROFILE_STEPS = 8           # profiled engine decode steps at full occupancy
@@ -316,6 +337,11 @@ DECODE_SHAPES = ((16, 20, 20, 128, 4096), (4, 32, 8, 128, 1000),
 # is one split, a split border, one past it, 1, above S, S, ...
 DECODE_SPLIT_SHAPES = ((8, 56, 8, 128, 4096), (4, 64, 8, 112, 1500),
                        (4, 48, 1, 128, 4096), (8, 16, 16, 100, 777))
+# kernel 6's timed state in phase 16: every slot full, each holding a
+# request at its last decode step (a prompt from SERVE_PROMPT plus SERVE_NEW
+# tokens), lengths from default_rng(SEED), whatever the request count
+DECODE_TIMED_LENGTHS = tuple(int(n) + SERVE_NEW for n in np.random.default_rng(
+    SEED).integers(SERVE_PROMPT[0], SERVE_PROMPT[1] + 1, SERVE_SLOTS))
 # kernel 6 at a GQA shape in phase 16, for information: yi-34b's heads
 DECODE_GQA_SHAPE = (16, 56, 8, 128, 4096)
 FLASH_SHAPES = ((1, 3072, 20, 20, 128), (2, 1000, 32, 8, 128),
@@ -374,8 +400,8 @@ DES_REFINE_FREQ = 2048
 DES_REFINE_TURNS = 1024
 DES_MAX_TICKS = 400_000
 DES_CHURN = (32, 1024)      # random_churn: segments, ticks a segment
-DES_PARITY_ROUNDS = 4       # refinement rounds held kernel vs twin path
-DES_EAGER_TICKS = 512       # ticks held graph-replayed vs eager
+DES_PARITY_ROUNDS = 2       # refinement rounds held kernel vs twin path
+DES_EAGER_TICKS = 256       # ticks held graph-replayed vs eager
 DES_PROFILE_TICKS = 64
 DES_FLEET_B = 8
 DES_FLEET_N = 1024
@@ -396,7 +422,7 @@ DIST_PLAN_ROUNDS = 96
 DIST_PLAN = dict(p_down=0.03, down_length=(2, 4), p_omit=0.05, p_lost=0.2,
                  p_dup=0.08, p_corrupt=0.04)
 DIST_PROFILE_TURNS = 256
-TELEMETRY_WINDOW = 1024     # phase 23 (a): turns a timed window
+TELEMETRY_WINDOW = 256      # phase 23 (a): turns a timed window
 TIMED_TURNS = 256           # phase 23 (b): turns under the timed dissat_fn
 ANNEAL_N = 4096
 ANNEAL_K = 16
@@ -416,17 +442,29 @@ MOE_TIMED_ITERS = 10
 
 # phases 26-27: training at full width (launch.train.train), the
 # expert planner on granite's router statistics
-TRAIN_STEPS = 12
+# (6 steps: the script's time limit)
+TRAIN_STEPS = 6
 TRAIN_BATCH = 8
 TRAIN_SEQ = 1024
-TRAIN_REPLAN = 4            # replans at steps 4, 8 and 12
+TRAIN_REPLAN = 2            # replans at steps 2, 4 and 6
 TRAIN_GROUPS = 4            # expert groups the planner balances over
-TRAIN_CKPT_EVERY = 6        # (e): resume from step 6 of the 12
+TRAIN_CKPT_EVERY = 3        # (e): checkpoints at 3 and 6, resumed from 3
 TRAIN_PARITY_LAYERS = 2     # (b): f32, full width, kernel vs plain autograd
 TRAIN_GRAD_TOL = 1e-4       # (b): max |g_k - g_p| / max |g_p| over leaves
 PLANNER_MOE_TOL = 2e-4      # (c): the reference's budget, test_planner.py
 PLANNER_MOE_TOKENS = 1024   # (c): tokens through layer 0's MoE block
-TRAIN_PROFILE_STEPS = (8, 9)  # (e): steps of the resumed run profiled
+TRAIN_PROFILE_STEPS = (4, 5)  # (e): steps of the resumed run profiled
+
+# phase 28: the LM examples on the card
+EXAMPLE_REPLANS = [15, 30, 45, 60]  # (a): moe_expert_rebalance's replans
+TRAIN_LM_STEPS = 40         # (b): train_lm --steps 40 --demo-restart
+SAMPLE_ARCH = LM_ARCH       # (c): temperature sampling at full width
+SAMPLE_TEMPERATURE = 0.8
+SAMPLE_REQUESTS = 8
+SAMPLE_NEW = 32
+SAMPLE_DRAWS = 2 ** 17      # (c): card draws from one logits row
+SAMPLE_VOCAB = 1024         # its width (a seeded N(0, 3^2) row)
+SAMPLE_TOP_K = 50
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s, f32 FLOP/s
 # outside the tensor cores, dense bf16 FLOP/s on the tensor cores
@@ -1849,7 +1887,7 @@ class FiniteGreedy:
 
 def _serve_full_width(cfg, mods, card):
     """Phases 14, 18, 24 and 25: ``cfg`` at full width, random weights
-    from a seeded generator on the card, serving the 48 requests of
+    from a seeded generator on the card, serving the 32 requests of
     ``_request_prompts`` through the port's ServingEngine with the launch
     counts of ``mods`` set to 0 just before the run.  Checks that every
     request has its tokens and every logit was finite; returns (params,
@@ -2070,10 +2108,11 @@ def phase_attention_times(A, F, engine, card):
     from repro_torch.kernels.dissatisfaction import _ptr
     cfg_h, hkv, d = 20, 20, 128
     stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-    # kernel 6: layer 0 of the engine's cache, each slot's current length
+    # kernel 6: layer 0 of the engine's cache at the fixed lengths
     k6, v6 = engine.cache.kv_k[0], engine.cache.kv_v[0]
     b, s = k6.shape[0], k6.shape[1]
-    length = torch.clamp(engine.cache.position + 1, max=s).to(torch.int32)
+    length = torch.tensor(DECODE_TIMED_LENGTHS, dtype=torch.int32,
+                          device="cuda")
     (q6,) = _attn_inputs([(b, cfg_h, d)], 6, torch.bfloat16)
     valid = int(length.sum())
     mask = (torch.arange(s, device="cuda")[None, :] < length[:, None])[
@@ -3939,7 +3978,7 @@ def phase_train(arch: str, F, S8, D, card, planner: bool):
               device="cuda")
     ckpt = tempfile.mkdtemp(prefix="chip_smoke_train_")
     try:
-        # (c)-(d): the uninterrupted run, checkpoints at 6 and 12
+        # (c)-(d): the uninterrupted run, checkpoints at 3 and 6
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         for mod in mods:
@@ -3996,8 +4035,9 @@ def phase_train(arch: str, F, S8, D, card, planner: bool):
             f"{want['ssd_scan']} launches (remat: each layer's forward runs "
             f"again in the backward), no twin; the run: {launches}")
 
-        # (e): the step-12 checkpoint taken away, a fresh train() resumes
-        # from step 6 and must end on the uninterrupted state bitwise
+        # (e): the step-6 checkpoint taken away, a fresh train() resumes
+        # from step 3 and must end on the uninterrupted state bitwise
+        # (the replans at steps 4 and 6 included)
         shutil.rmtree(os.path.join(ckpt, f"step_{TRAIN_STEPS:08d}"))
         for mod in mods:
             mod.reset_launches()
@@ -4041,6 +4081,216 @@ def phase_train(arch: str, F, S8, D, card, planner: bool):
             "per_step": per_step, "ms": ms, "tok_s": tok_s, "peak": peak,
             "busy": busy, "replans": probe.replans + probe2.replans,
             "io": io}
+
+
+# ---------------------------------------------------------------------------
+# phase 28: the LM examples on the card
+# ---------------------------------------------------------------------------
+
+def sampling_tv(gen, logits_row, temperature: float, top_k: int,
+                draws: int):
+    """``draws`` draws of ``sample_logits`` from one logits row (on its
+    device) against ``softmax(logits / T)`` (top-k kept as the sampler
+    keeps it, from the f32 row divided by T) in f64 on the host: (total
+    variation distance, its bound, draws outside the kept set).  The
+    bound: E[TV] <= 0.5 sum_i sqrt(p_i (1 - p_i) / n), and one draw moves
+    TV by at most 1/n, so TV passes E[TV] + sqrt(ln(10^6) / (2 n)) with
+    probability below 10^-6 (McDiarmid)."""
+    from repro_torch.serving.sampler import sample_logits
+    v = logits_row.shape[-1]
+    tok = sample_logits(gen, logits_row[None].expand(draws, v),
+                        temperature=temperature, top_k=top_k)
+    counts = torch.bincount(tok.long(), minlength=v).cpu().double()
+    z = logits_row.float().cpu() / temperature
+    kept = torch.ones(v, dtype=torch.bool)
+    if top_k > 0:
+        kept = z >= torch.topk(z, top_k).values[-1]
+    p = torch.softmax(torch.where(kept, z.double(), -math.inf), dim=0)
+    tv = 0.5 * float((counts / draws - p).abs().sum())
+    bound = 0.5 * float(torch.sqrt(p * (1 - p) / draws).sum()) \
+        + math.sqrt(math.log(1e6) / (2 * draws))
+    return tv, bound, int(counts[~kept].sum())
+
+
+def _dir_bytes(path: str) -> int:
+    import os
+    return sum(os.path.getsize(os.path.join(root, f))
+               for root, _, files in os.walk(path) for f in files)
+
+
+def phase_examples(A, F, D, card):
+    """Phase 28: the three LM examples' paths (a)-(c); see the
+    docstring."""
+    import os
+    import shutil
+    import tempfile
+
+    from repro_torch import configs
+    from repro_torch import moe_expert_rebalance as MX
+    from repro_torch import train_lm as TL
+    from repro_torch.launch import serve as SV
+    from repro_torch.launch import train as T
+    from repro_torch.sharding.planner import expert_placement
+    mods = (A, F, D)
+    counts = {}
+
+    # (a) moe_expert_rebalance: the shifting data, replans on kernel 1
+    cfg = configs.get_smoke_config(MX.ARCH)
+    for mod in mods:
+        mod.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, records = MX.run(device="cuda", verbose=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts["rebalance"] = _train_counts(mods)
+    if [r["step"] for r in records] != EXAMPLE_REPLANS:
+        fail(f"(a) replans at {[r['step'] for r in records]}")
+    per_step = cfg.attention_layers * (2 if cfg.remat else 1)
+    launched = counts["rebalance"]
+    if launched["flash_attention"] != MX.STEPS * per_step \
+            or launched["flash_attention_twin"] \
+            or launched["dissat_from_aggregate"] == 0:
+        fail(f"(a) launches {launched}, want kernel 7 {MX.STEPS} x "
+             f"{per_step}, kernel 1 > 0, no twin")
+    for r in records:
+        e = r["expert_load"].shape[0]
+        perm = r["perm"] if r["perm"] is not None \
+            else torch.arange(e, dtype=torch.int32)
+        cpu_perm, _, cpu_stats = expert_placement(
+            r["expert_load"], r["coactivation"], 4, mu=0.5)
+        same = cpu_stats["moves"] == r["stats"]["moves"] and all(
+            math.isclose(cpu_stats[k], r["stats"][k], rel_tol=1e-6)
+            for k in ("imbalance_before", "imbalance_after"))
+        if not torch.equal(perm, cpu_perm) or not same \
+                or not math.isfinite(r["loss"]):
+            fail(f"(a) replan at step {r['step']}: the card's permutation "
+                 f"{perm.tolist()} / {r['stats']} (loss {r['loss']}) vs the "
+                 f"CPU's {cpu_perm.tolist()} / {cpu_stats}")
+        log(f"  (a) step {r['step']}: loss {r['loss']:.4f}, imbalance "
+            f"{r['stats']['imbalance_before']:.4f} -> "
+            f"{r['stats']['imbalance_after']:.4f}, {r['stats']['moves']} "
+            f"moves, permutation {perm.tolist()} == the CPU's, bitwise")
+    log(f"  (a) {MX.ARCH} smoke, {MX.STEPS} steps and "
+        f"{len(records)} replans in {wall:.2f} s ({1e3 * wall / MX.STEPS:.1f}"
+        f" ms a step with the replans); launches {launched} [{card}]")
+
+    # (b) train_lm --steps 40 --demo-restart in a temporary directory
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_train_lm_")
+    midi = TL.midi_config()
+    try:
+        for mod in mods:
+            mod.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with _TrainProbe(T, mods, D, midi) as probe:
+            (_, first), (_, second) = TL.run(
+                steps=TRAIN_LM_STEPS, ckpt_dir=ckpt, demo_restart=True,
+                device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts["train_lm"] = _train_counts(mods)
+        half = TRAIN_LM_STEPS // 2
+        sizes = {name: _dir_bytes(os.path.join(ckpt, name))
+                 for name in sorted(os.listdir(ckpt))}
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    losses = first + second
+    if len(first) != half or len(second) != TRAIN_LM_STEPS - half \
+            or not all(math.isfinite(x) for x in losses):
+        fail(f"(b) phase 1 ran {len(first)} steps, phase 2 {len(second)} "
+             f"(want {half} and {TRAIN_LM_STEPS - half}, resumed at "
+             f"{half}); losses {losses}")
+    ms, _ = _steady(probe.steps, 0)
+    batch, seq = 8, 256
+    tok_s = batch * seq / (ms / 1e3)
+    launched = counts["train_lm"]
+    per_step = midi.attention_layers * (2 if midi.remat else 1)
+    if launched["flash_attention"] != TRAIN_LM_STEPS * per_step \
+            or launched["flash_attention_twin"] \
+            or launched["dissat_from_aggregate"] == 0:
+        fail(f"(b) launches {launched}, want kernel 7 {TRAIN_LM_STEPS} x "
+             f"{per_step}, kernel 1 > 0, no twin")
+    log(f"  (b) {midi.name} ({midi.param_count()} parameters), "
+        f"{TRAIN_LM_STEPS} steps of {batch} x {seq} tokens with a restart "
+        f"at {half} in {wall:.1f} s: losses {losses[0]:.4f} -> "
+        f"{first[-1]:.4f} | resumed {second[0]:.4f} -> {second[-1]:.4f}; "
+        f"{ms:.2f} ms a step, {tok_s:.1f} trained tokens/s, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
+    for r in probe.replans:
+        st = r["stats"]
+        log(f"  (b) replan at step {r['step']}: imbalance "
+            f"{st['imbalance_before']:.4f} -> {st['imbalance_after']:.4f}, "
+            f"{st['moves']} moves, kernel 1 {r['k1']} launches, "
+            f"{r['ms']:.1f} ms; permutation == the CPU's, bitwise")
+    log(f"  (b) checkpoints: " + ", ".join(
+        f"{name} {n / 1e9:.3f} GB" for name, n in sizes.items())
+        + "; I/O " + ", ".join(f"{label} {t:.2f} s" for label, t in probe.io))
+    log(f"  (b) launches {launched}")
+
+    # (c) sampling with temperature at full width
+    for mod in mods:
+        mod.reset_launches()
+    runs = []
+    for temperature in (SAMPLE_TEMPERATURE, SAMPLE_TEMPERATURE, 0.0):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stats = SV.serve(SAMPLE_ARCH, smoke=False, temperature=temperature,
+                         requests=SAMPLE_REQUESTS, max_new=SAMPLE_NEW,
+                         seed=SEED, device="cuda")
+        torch.cuda.synchronize()
+        runs.append((stats, time.perf_counter() - t0))
+        torch.cuda.empty_cache()
+    counts["sample"] = _train_counts(mods)
+    (hot, w1), (again, w2), (greedy, w3) = runs
+    cfg = configs.get_config(SAMPLE_ARCH)
+    for stats, _ in runs:
+        if len(stats["outputs"]) != SAMPLE_REQUESTS or any(
+                len(t) != SAMPLE_NEW for t in stats["outputs"].values()):
+            fail(f"(c) incomplete requests: {stats['outputs']}")
+    if hot["outputs"] != again["outputs"]:
+        fail("(c) the same seed sampled different tokens")
+    if hot["outputs"] == greedy["outputs"]:
+        fail("(c) sampling at T = 0.8 gave the greedy tokens")
+    launched = counts["sample"]
+    prefills = sum(st["prefills"] for st, _ in runs)
+    steps = sum(st["decode_steps"] for st, _ in runs)
+    n = cfg.attention_layers
+    if launched["flash_attention"] != n * prefills \
+            or launched["decode_attention"] != n * steps \
+            or launched["flash_attention_twin"] \
+            or launched["decode_attention_twin"]:
+        fail(f"(c) launches {launched}, want kernel 7 {n} x {prefills}, "
+             f"kernel 6 {n} x {steps}, no twin")
+    differ = sum(a != b for u in hot["outputs"]
+                 for a, b in zip(hot["outputs"][u], greedy["outputs"][u]))
+    log(f"  (c) {SAMPLE_ARCH} at full width, {SAMPLE_REQUESTS} requests x "
+        f"{SAMPLE_NEW} new tokens at T = {SAMPLE_TEMPERATURE}: "
+        f"{hot['tok_per_s']:.1f} and {again['tok_per_s']:.1f} generated "
+        f"tok/s ({w1:.1f} and {w2:.1f} s with the weights' draw), the same "
+        f"tokens both runs; greedy {greedy['tok_per_s']:.1f} tok/s "
+        f"({w3:.1f} s), {differ} of {SAMPLE_REQUESTS * SAMPLE_NEW} tokens "
+        f"differ; launches {launched} [{card}]")
+    g = torch.Generator(device="cpu").manual_seed(SEED + 28)
+    row = (3.0 * torch.randn(SAMPLE_VOCAB, generator=g)).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 28)
+    sampling = []
+    for top_k in (0, SAMPLE_TOP_K):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tv, bound, outside = sampling_tv(gen, row, SAMPLE_TEMPERATURE, top_k,
+                                         SAMPLE_DRAWS)
+        dt = time.perf_counter() - t0
+        log(f"  (c) {SAMPLE_DRAWS} card draws, V = {SAMPLE_VOCAB}, T = "
+            f"{SAMPLE_TEMPERATURE}, top_k {top_k}: TV from softmax(logits "
+            f"/ T) {tv:.5f} (bound {bound:.5f}), {outside} draws outside "
+            f"the kept set, {dt:.2f} s")
+        if not tv <= bound or outside:
+            fail(f"(c) top_k {top_k}: TV {tv} > {bound} or {outside} draws "
+                 f"outside the top-k")
+        sampling.append({"top_k": top_k, "tv": tv, "bound": bound})
+    return {"launches": counts, "sampling": sampling, "train_ms": ms,
+            "train_tok_s": tok_s, "ckpt_bytes": sizes}
 
 
 def main() -> int:
@@ -4249,6 +4499,18 @@ def main() -> int:
             if name in run["errs"]:
                 rec["max_abs_err"] = max(rec["max_abs_err"],
                                          run["errs"][name])
+    log("== phase 28: the LM examples on the card (moe_expert_rebalance, "
+        "train_lm --demo-restart, temperature sampling at full width)")
+    t0 = time.perf_counter()
+    examples = phase_examples(A, F, D, card)
+    log(f"  phase 28: {time.perf_counter() - t0:.1f} s")
+    for rec in kernels:
+        name = rec["name"]
+        if name in ("flash_attention", "decode_attention",
+                    "dissat_from_aggregate"):
+            rec["examples_launches"] = {
+                run: counts[name]
+                for run, counts in examples["launches"].items()}
     log(f"  total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -3,12 +3,14 @@
 
 Each module defines ``CONFIG`` (exact published numbers, source noted in its
 docstring) and ``smoke()`` (reduced same-family variant for CPU tests).  The
-modules are the reference's, copied; the dry-run's input shapes
-(``repro.configs.shapes``) are not ported.
+modules are the reference's, copied; so are the dry run's four input shapes
+(``shapes``), whose inputs are ``meta`` tensors.
 """
 from __future__ import annotations
 
 import importlib
+
+from .shapes import SHAPES, Shape, input_specs, shape_is_applicable  # noqa: F401
 
 ARCH_IDS = (
     "mamba2_1p3b",

@@ -165,9 +165,9 @@ def shard_across_devices(tree, devices=None):
     """Shard a stacked tree's leading batch axis across devices.
 
     No-op on a single device or when the batch does not divide the device
-    count, as in the reference.  Placing elements on several GPUs comes
-    with the distributed-refinement slice of the port; until then a
-    multi-GPU request raises ``NotImplementedError``.
+    count, as in the reference.  Placing elements on several GPUs waits
+    for a machine with several cards to hold it against the one-card
+    run; until then a multi-GPU request raises ``NotImplementedError``.
     """
     if devices is None:
         devices = [torch.device("cuda", i)
@@ -176,8 +176,8 @@ def shard_across_devices(tree, devices=None):
     if len(devices) <= 1 or batch_size(tree) % len(devices) != 0:
         return tree
     raise NotImplementedError(
-        "sharding a fleet across several GPUs is not ported yet; it comes "
-        "with the distributed-refinement slice of the port")
+        "sharding a fleet across several GPUs is not ported yet: its "
+        "distributed placement waits for a machine with several cards")
 
 
 def _stack_theta(theta, num_problems: int, num_nodes: int, device=None):

@@ -34,6 +34,8 @@ def serve(arch: str, *, smoke: bool = True, requests: int = 16,
           max_new: int = 24, slots: int = 4, max_len: int = 256,
           temperature: float = 0.0, ckpt_dir: str | None = None,
           seed: int = 0, device: str = "cuda"):
+    """Serve ``requests`` random prompts; returns the engine's stats, with
+    each request's tokens under ``outputs`` ({uid: tokens})."""
     cfg = configs.get_smoke_config(arch) if smoke else configs.get_config(arch)
     params = init_params(cfg, torch.Generator(device=device).manual_seed(seed))
     if ckpt_dir:
@@ -59,6 +61,7 @@ def serve(arch: str, *, smoke: bool = True, requests: int = 16,
                               ).astype(np.int32)
         eng.submit(Request(i, prompt, max_new_tokens=max_new))
     stats = eng.run()
+    stats["outputs"] = {r.uid: list(r.output) for r in eng.finished}
     print(f"[serve] {stats['requests']} requests | "
           f"{stats['generated_tokens']} tokens | "
           f"{stats['decode_steps']} batched decode steps | "

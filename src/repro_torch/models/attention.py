@@ -45,21 +45,24 @@ def _check_path(attention: str) -> None:
                          f"{attention!r}")
 
 
-def init_attention(generator: torch.Generator, cfg: ModelConfig) -> dict:
+def init_attention(generator: torch.Generator, cfg: ModelConfig,
+                   device=None) -> dict:
+    """Drawn from ``generator`` on its device, or on ``device``."""
     d, h, hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     scale = d ** -0.5
     dtype = cfg.pdtype()
+    dev = generator.device if device is None else device
     params = {
-        "wq": normal_init(generator, (d, h * hd), scale, dtype),
-        "wk": normal_init(generator, (d, hkv * hd), scale, dtype),
-        "wv": normal_init(generator, (d, hkv * hd), scale, dtype),
-        "wo": normal_init(generator, (h * hd, d), (h * hd) ** -0.5, dtype),
+        "wq": normal_init(generator, (d, h * hd), scale, dtype, dev),
+        "wk": normal_init(generator, (d, hkv * hd), scale, dtype, dev),
+        "wv": normal_init(generator, (d, hkv * hd), scale, dtype, dev),
+        "wo": normal_init(generator, (h * hd, d), (h * hd) ** -0.5, dtype,
+                          dev),
     }
     if cfg.qkv_bias:
         for name, width in (("bq", h * hd), ("bk", hkv * hd),
                             ("bv", hkv * hd)):
-            params[name] = torch.zeros((width,), dtype=dtype,
-                                       device=generator.device)
+            params[name] = torch.zeros((width,), dtype=dtype, device=dev)
     return params
 
 

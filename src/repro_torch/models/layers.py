@@ -14,7 +14,8 @@ import torch.nn.functional as F
 def normal_init(generator: torch.Generator, shape, scale: float,
                 dtype: torch.dtype, device=None) -> torch.Tensor:
     """``scale * N(0, 1)`` drawn in float32 from ``generator`` on its
-    device, then cast to ``dtype``."""
+    device (or on ``device``: ``meta`` gives the shape alone), then cast
+    to ``dtype``."""
     device = generator.device if device is None else device
     x = torch.randn(shape, generator=generator, dtype=torch.float32,
                     device=device)
@@ -55,13 +56,16 @@ def swiglu(x, w_gate, w_up, w_down):
 
 
 def init_mlp(generator: torch.Generator, d_model: int, d_ff: int,
-             dtype: torch.dtype) -> dict:
+             dtype: torch.dtype, device=None) -> dict:
     scale_in = d_model ** -0.5
     scale_out = d_ff ** -0.5
     return {
-        "gate": normal_init(generator, (d_model, d_ff), scale_in, dtype),
-        "up": normal_init(generator, (d_model, d_ff), scale_in, dtype),
-        "down": normal_init(generator, (d_ff, d_model), scale_out, dtype),
+        "gate": normal_init(generator, (d_model, d_ff), scale_in, dtype,
+                            device),
+        "up": normal_init(generator, (d_model, d_ff), scale_in, dtype,
+                          device),
+        "down": normal_init(generator, (d_ff, d_model), scale_out, dtype,
+                            device),
     }
 
 

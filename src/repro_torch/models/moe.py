@@ -57,18 +57,19 @@ class Dispatch(NamedTuple):
     keep: torch.Tensor          # real (not padding) and within capacity
 
 
-def init_moe(generator: torch.Generator, cfg: ModelConfig) -> dict:
+def init_moe(generator: torch.Generator, cfg: ModelConfig,
+             device=None) -> dict:
     """The reference's shapes and scales, drawn from ``generator`` on its
-    device in the parameter dtype: router and gate/up ``d**-0.5``, down
-    ``f**-0.5``."""
+    device (or on ``device``) in the parameter dtype: router and gate/up
+    ``d**-0.5``, down ``f**-0.5``."""
     d, f, e = cfg.d_model, cfg.d_ff, cfg.num_experts
     dtype = cfg.pdtype()
     scale_in = d ** -0.5
     return {
-        "router": normal_init(generator, (d, e), scale_in, dtype),
-        "gate": normal_init(generator, (e, d, f), scale_in, dtype),
-        "up": normal_init(generator, (e, d, f), scale_in, dtype),
-        "down": normal_init(generator, (e, f, d), f ** -0.5, dtype),
+        "router": normal_init(generator, (d, e), scale_in, dtype, device),
+        "gate": normal_init(generator, (e, d, f), scale_in, dtype, device),
+        "up": normal_init(generator, (e, d, f), scale_in, dtype, device),
+        "down": normal_init(generator, (e, f, d), f ** -0.5, dtype, device),
     }
 
 

@@ -46,17 +46,19 @@ def conv_dim(cfg: ModelConfig) -> int:
     return cfg.d_inner + 2 * cfg.ssm_state
 
 
-def init_ssm(generator: torch.Generator, cfg: ModelConfig) -> dict:
+def init_ssm(generator: torch.Generator, cfg: ModelConfig,
+             device=None) -> dict:
     """The reference's initializers and scales, drawn from ``generator``
-    on its device: ``A_log``, ``dt_bias`` and ``D`` in f32, the rest in
-    the parameter dtype."""
+    on its device (or on ``device``): ``A_log``, ``dt_bias`` and ``D`` in
+    f32, the rest in the parameter dtype."""
     d, di, n, h = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
     proj_out = 2 * di + 2 * n + h     # z, x, B, C, dt
-    dtype, dev = cfg.pdtype(), generator.device
+    dtype = cfg.pdtype()
+    dev = generator.device if device is None else device
     f32 = torch.float32
-    in_proj = normal_init(generator, (d, proj_out), d ** -0.5, dtype)
+    in_proj = normal_init(generator, (d, proj_out), d ** -0.5, dtype, dev)
     conv_w = normal_init(generator, (conv_dim(cfg), cfg.ssm_conv),
-                         cfg.ssm_conv ** -0.5, dtype)
+                         cfg.ssm_conv ** -0.5, dtype, dev)
     a_log = torch.log(1.0 + 15.0 * torch.rand(
         (h,), generator=generator, dtype=f32, device=dev))
     lo, hi = math.log(1e-3), math.log(1e-1)
@@ -69,7 +71,8 @@ def init_ssm(generator: torch.Generator, cfg: ModelConfig) -> dict:
         "dt_bias": dt + torch.log(-torch.expm1(-dt)),
         "D": torch.ones((h,), dtype=f32, device=dev),
         "gate_norm": torch.ones((di,), dtype=dtype, device=dev),
-        "out_proj": normal_init(generator, (di, d), di ** -0.5, dtype),
+        "out_proj": normal_init(generator, (di, d), di ** -0.5, dtype,
+                                dev),
     }
 
 

@@ -97,51 +97,59 @@ def _attention_layer_index(cfg: ModelConfig) -> list[int]:
 # ---------------------------------------------------------------------------
 
 def _init_attention_block(generator: torch.Generator, cfg: ModelConfig,
-                          ffn: str) -> dict:
-    dtype, dev = cfg.pdtype(), generator.device
+                          ffn: str, dev: torch.device) -> dict:
+    dtype = cfg.pdtype()
     block = {
         "attn_norm": torch.ones((cfg.d_model,), dtype=dtype, device=dev),
-        "attn": init_attention(generator, cfg),
+        "attn": init_attention(generator, cfg, dev),
         "ffn_norm": torch.ones((cfg.d_model,), dtype=dtype, device=dev),
     }
-    block[ffn] = init_moe(generator, cfg) if ffn == "moe" \
-        else init_mlp(generator, cfg.d_model, cfg.d_ff, dtype)
+    block[ffn] = init_moe(generator, cfg, dev) if ffn == "moe" \
+        else init_mlp(generator, cfg.d_model, cfg.d_ff, dtype, dev)
     return block
 
 
-def _init_block(generator: torch.Generator, cfg: ModelConfig) -> dict:
+def _init_block(generator: torch.Generator, cfg: ModelConfig,
+                dev: torch.device) -> dict:
     if _mamba_layers(cfg):
         return {
             "norm": torch.ones((cfg.d_model,), dtype=cfg.pdtype(),
-                               device=generator.device),
-            "ssm": init_ssm(generator, cfg),
+                               device=dev),
+            "ssm": init_ssm(generator, cfg, dev),
         }
     return _init_attention_block(generator, cfg,
-                                 "moe" if cfg.family == MOE else "mlp")
+                                 "moe" if cfg.family == MOE else "mlp", dev)
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator | int = 0,
                 device=None) -> dict:
     """Random parameters of ``cfg`` (the reference's initializers and
-    scales), drawn from ``generator`` on its device.  An int seeds a new
-    generator on ``device`` (default: the card)."""
+    scales), drawn from ``generator``: on ``device`` when one is given,
+    else on the generator's device.  An int seeds a new generator on
+    ``device`` (default: the card).  ``device="meta"`` builds the
+    abstract tree the dry run shards (shapes and dtypes, no storage);
+    there is no meta generator, so its draws take a CPU one."""
     if not isinstance(generator, torch.Generator):
+        gen_dev = resolve_device(device)
         generator = torch.Generator(
-            device=resolve_device(device)).manual_seed(int(generator))
-    dtype, dev = cfg.pdtype(), generator.device
-    blocks = [_init_block(generator, cfg) for _ in range(cfg.num_layers)]
+            device="cpu" if gen_dev.type == "meta" else gen_dev
+        ).manual_seed(int(generator))
+    dev = generator.device if device is None else torch.device(device)
+    dtype = cfg.pdtype()
+    blocks = [_init_block(generator, cfg, dev)
+              for _ in range(cfg.num_layers)]
     params = {
         "embed": normal_init(generator, (cfg.vocab_size, cfg.d_model), 0.02,
-                             dtype),
+                             dtype, dev),
         "blocks": blocks,
         "final_norm": torch.ones((cfg.d_model,), dtype=dtype, device=dev),
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = normal_init(
             generator, (cfg.d_model, cfg.vocab_size), cfg.d_model ** -0.5,
-            dtype)
+            dtype, dev)
     if cfg.family == HYBRID and cfg.attn_period > 0:
-        params["shared"] = _init_attention_block(generator, cfg, "mlp")
+        params["shared"] = _init_attention_block(generator, cfg, "mlp", dev)
     return params
 
 

@@ -1356,3 +1356,25 @@ def test_planner_on_the_card_equals_the_cpu(card):
     b, game_cpu, dp_cpu = stage_assignment(cost, 128.0, 4, device="cpu")
     assert a.device.type == "cuda" and torch.equal(a.cpu(), b)
     assert (game, dp) == (game_cpu, dp_cpu)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("top_k", [0, 50])
+def test_sample_logits_distribution_on_the_card(card, top_k):
+    """2^17 card draws of ``sample_logits`` from one logits row at T = 0.8:
+    the total-variation distance from softmax(logits / T) (top-k kept as
+    the sampler keeps it) within ``chip_smoke.sampling_tv``'s bound, which
+    fails with probability below 10^-6; no draw outside the top-k; the
+    same generator seed draws the same tokens."""
+    from repro_torch.serving.sampler import sample_logits
+    smoke = _smoke()
+    g = torch.Generator(device="cpu").manual_seed(28)
+    row = (3.0 * torch.randn(1024, generator=g)).to(card)
+    gen = torch.Generator(device=card).manual_seed(28)
+    tv, bound, outside = smoke.sampling_tv(gen, row, 0.8, top_k, 2 ** 17)
+    assert tv <= bound and outside == 0, (tv, bound, outside)
+    draws = [sample_logits(torch.Generator(device=card).manual_seed(5),
+                           row[None].expand(64, 1024), temperature=0.8,
+                           top_k=top_k) for _ in range(2)]
+    assert draws[0].device.type == "cuda" and draws[0].dtype == torch.int32
+    assert torch.equal(draws[0], draws[1])

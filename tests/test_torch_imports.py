@@ -34,14 +34,15 @@ def test_port_imports_no_jax_and_no_reference():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     report = json.loads(out.stdout.strip().splitlines()[-1])
-    assert report["modules"] >= 82
+    assert report["modules"] >= 94
     assert report["imported"] == []
 
 
 def test_every_port_module_is_listed():
     """The probe above walks the package; make sure the walk sees the
     kernel, core, model, serving, launch, partitioner, DES, distributed,
-    telemetry, training and planner modules the slices ship."""
+    telemetry, training, planner, sharding, dry-run and example modules
+    the slices ship."""
     names = {m.name for m in pkgutil.walk_packages(
         [str(REPO / "src" / "repro_torch")], "repro_torch.")}
     for mod in ("core.problem", "core.costs", "core.aggregate",
@@ -73,7 +74,10 @@ def test_every_port_module_is_listed():
                 "training.optimizer", "training.train_step",
                 "training.checkpoint", "training.compression",
                 "training.tree", "sharding", "sharding.planner",
-                "launch.train"):
+                "launch.train", "sharding.rules", "sharding.hints",
+                "configs.shapes", "launch.mesh", "launch.traffic",
+                "launch.flops", "launch.collectives", "launch.dryrun",
+                "moe_expert_rebalance", "train_lm", "serve_lm"):
         assert f"repro_torch.{mod}" in names
 
 
@@ -130,8 +134,9 @@ def test_obs_exports_the_reference_names():
 
 def test_training_and_sharding_export_the_reference_names():
     """``repro_torch.training`` and ``repro_torch.sharding`` export the
-    reference's public names (the sharding rules wait for a later slice:
-    the planner's four names), and ``models`` has ``forward_train``."""
+    reference's public names (sharding's seven: the rules' four and the
+    planner's three, with the port's ``apply_expert_permutation``), and
+    ``models`` has ``forward_train``."""
     import ast
     sys.path.insert(0, str(REPO / "src"))
     import repro_torch.models as models
@@ -146,7 +151,10 @@ def test_training_and_sharding_export_the_reference_names():
 
     for name in imported("training"):
         assert hasattr(training, name), name
-    for name in ("PartitionPlanner", "expert_placement", "stage_assignment",
-                 "apply_expert_permutation"):
+    want = imported("sharding")
+    assert want == {"batch_spec", "cache_shardings", "param_shardings",
+                    "state_shardings", "PartitionPlanner",
+                    "expert_placement", "stage_assignment"}
+    for name in want | {"apply_expert_permutation"}:
         assert hasattr(sharding, name), name
     assert callable(models.forward_train)
