@@ -13,8 +13,9 @@ run telemetry on those paths, the MoE and hybrid serving paths
 training with the expert planner (granite-moe-1b-a400m and mamba2-1.3b at
 full width through ``launch.train``), the three LM examples
 (``moe_expert_rebalance``, ``train_lm`` with its restart, and temperature
-sampling on qwen1.5-4b at full width), times every kernel, and checks the
-results.
+sampling on qwen1.5-4b at full width), and the contract linter over every
+entry point of the game at its full size grid, times every kernel, and
+checks the results.
 
   python3 chip_smoke.py          # needs one CUDA card and nvcc
 
@@ -255,6 +256,16 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      ``sample_logits`` from one logits row (V = 1024) at T = 0.8 without
      and with top_k 50, the total-variation distance from softmax(logits /
      T) within its bound at 10^-6 and no draw outside the top-k.
+ 29. the contract linter on the card — (a) ``repro_torch.analysis``'s
+     every rule family at the full grid with ``device="cuda"``: the 17
+     rules, the dispatch matrix, the findings (none outside the port's
+     ``baseline.json``) and the seconds; (b) for each of the 21 entry
+     points the allocator's peak bytes at each N of the grid and the
+     fitted ``mem_device`` exponents, each within its declared budget +
+     ``EXPONENT_TOL`` and within ``EXPECTATION_TOL`` of
+     ``complexity.json``'s ``full/cuda`` section; (c) kernels 1-8's
+     launches during (a) (``analysis_launches`` in the kernels' line):
+     kernels 1, 3 and 4, on the entry points' card routes, more than 0.
 
 Each path's launch counts are set to 0 just before it and read just after.
 The line before the last two is the kernels' JSON record; then the card's
@@ -267,6 +278,7 @@ import math
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -492,6 +504,13 @@ def smi() -> str:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def _timed(fn) -> float:
+    """Seconds ``fn()`` takes."""
+    t0 = time.perf_counter()
+    fn()
+    return time.perf_counter() - t0
 
 
 def cuda_ms(fn, iters: int, warmup: int = 5) -> float:
@@ -4293,6 +4312,96 @@ def phase_examples(A, F, D, card):
             "train_tok_s": tok_s, "ckpt_bytes": sizes}
 
 
+# phase 29: the kernels the linter's entry points launch on the card
+# (``refine.kernel`` and ``distributed.shard_map``: kernel 1;
+# ``batch.refine`` and ``distributed.refine``: kernel 3;
+# ``refine.sparse.edge_kernel``: kernel 4)
+ANALYSIS_ROUTES = ("dissat_from_aggregate", "dissat_from_aggregate_batched",
+                   "dissat_from_edges")
+
+
+def _kernel_modules():
+    from repro_torch.kernels import decode_attention, dissatisfaction, \
+        edge_block, flash_attention, ssd_scan
+    return (dissatisfaction, edge_block, decode_attention, flash_attention,
+            ssd_scan)
+
+
+def phase_analysis(card):
+    """Phase 29: the contract linter's every family at the full grid on
+    the card; the allocator fits against the budgets and the table; the
+    kernels' launches during the run."""
+    from repro_torch.analysis import (FAMILIES, AnalysisContext,
+                                      complexity_rules, entrypoints,
+                                      load_baseline, registered_rules,
+                                      run_rules, split_findings)
+    cx = complexity_rules
+    mods = _kernel_modules()
+    for mod in mods:
+        mod.reset_launches()
+    t0 = time.perf_counter()
+    ctx = AnalysisContext(complexity_grid="full", device="cuda")
+    findings, fam_secs = [], {}
+    with ctx.sessions():                # one NCCL group for every family
+        for fam in FAMILIES:
+            t1 = time.perf_counter()
+            findings += run_rules(ctx, [fam])
+            fam_secs[fam] = round(time.perf_counter() - t1, 1)
+    findings.sort(key=lambda f: f.id)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {name: n for mod in mods for name, n in mod.launches.items()}
+    rules = registered_rules()
+    log(f"  (a) {len(rules)} rules in {secs:.1f} s on {card} (by family "
+        f"{fam_secs}): {', '.join(sorted(r.name for r in rules))}")
+    for cell, info in ctx.reports["dispatch-coverage"]["cells"].items():
+        log(f"    {cell:<20s}{'covered' if info['covered'] else 'MISSING'}")
+    new, known, stale = split_findings(findings, load_baseline())
+    for f in known:
+        log(f"    [baselined] {f.id}")
+    for f in new:
+        log(f"    [NEW] {f.id}: {f.message}")
+    for sid in sorted(stale):
+        log(f"    [stale baseline entry] {sid}")
+    if new:
+        fail(f"the linter found {len(new)} finding(s) outside the port's "
+             f"baseline: {[f.id for f in new]}")
+    if len(rules) != 17:
+        fail(f"{len(rules)} rules registered, want the reference's 17")
+    section = cx.section_name("full", "cuda")
+    table = cx.load_table().get("grids", {}).get(section)
+    if table is None:
+        fail(f"complexity.json has no {section!r} section")
+    profiles = cx.all_profiles("full", "cuda")
+    if len(profiles) != len(entrypoints.registered_entry_points()):
+        fail(f"{len(profiles)} profiles for "
+             f"{len(entrypoints.registered_entry_points())} entry points")
+    log(f"  (b) the allocator's peak bytes at each grid size, the fitted "
+        f"mem_device exponents (budget + {cx.EXPONENT_TOL}; table "
+        f"{section!r} within {cx.EXPECTATION_TOL})")
+    for name, prof in sorted(profiles.items()):
+        budget = cx.declared_budget(entrypoints.entry_point(name))["mem"]
+        fits = prof["fits"]["mem_device"]
+        want = table[name]["fits"]["mem_device"]
+        peaks = prof["mem_device_bytes"]
+        log(f"    {name:<32s} N {prof['sizes']['n']}: {peaks['n']} B; "
+            + "; ".join(f"{d} {fits[d]:.3f} (budget {budget[d]}, table "
+                        f"{want[d]})" for d in sorted(fits)))
+        for dim, got in fits.items():
+            if got > budget[dim] + cx.EXPONENT_TOL:
+                fail(f"{name}: mem_device exponent {got:.3f} in {dim} over "
+                     f"its budget {budget[dim]}")
+            if abs(got - want[dim]) > cx.EXPECTATION_TOL:
+                fail(f"{name}: mem_device exponent {got:.3f} in {dim}, the "
+                     f"table says {want[dim]}")
+    log(f"  (c) kernel launches during (a): {launches}")
+    for name in ANALYSIS_ROUTES:
+        if launches[name] <= 0:
+            fail(f"kernel {name} was not launched by the linter's card "
+                 f"routes")
+    return {"launches": launches, "seconds": secs}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke run needs one GPU")
@@ -4312,26 +4421,28 @@ def main() -> int:
     card = smi()
     log(f"  nvidia-smi: {card}")
     log(f"  provenance: {json.dumps(provenance())}")
-    t0 = time.perf_counter()
-    _build.build_all()
-    log(f"  kernel build: {time.perf_counter() - t0:.1f} s")
+    # the nvcc processes build while this thread draws the main problem
+    with ThreadPoolExecutor(1) as nvcc_pool:
+        build = nvcc_pool.submit(_timed, _build.build_all)
+        log(f"== set-up: problem N={N}, K={K}, mu={MU} from seed {SEED}, "
+            f"beside the kernels' build")
+        t0 = time.perf_counter()
+        adj_np = random_degree_graph(N, seed=SEED, dmin=3, dmax=6)
+        node_w, edge_w = random_weights(adj_np, seed=SEED + 1, mean=5.0)
+        del adj_np
+        rng = np.random.default_rng(SEED + 2)
+        speeds = rng.uniform(0.5, 2.0, size=K)
+        problem = make_problem(edge_w, node_w, speeds, mu=MU, device="cuda")
+        del edge_w
+        torch.cuda.synchronize()
+        log(f"  built in {time.perf_counter() - t0:.1f} s; speeds "
+            f"{np.round(speeds / speeds.sum(), 4).tolist()}")
+        build_s = build.result()
+    log(f"  kernel build: {build_s:.1f} s")
     for stem, report in _build.build_reports.items():
         for line in report.splitlines():
             if "Used" in line or "spill" in line or "Compiling" in line:
                 log(f"  [{stem}] {line.strip()}")
-
-    log(f"== set-up: problem N={N}, K={K}, mu={MU} from seed {SEED}")
-    t0 = time.perf_counter()
-    adj_np = random_degree_graph(N, seed=SEED, dmin=3, dmax=6)
-    node_w, edge_w = random_weights(adj_np, seed=SEED + 1, mean=5.0)
-    del adj_np
-    rng = np.random.default_rng(SEED + 2)
-    speeds = rng.uniform(0.5, 2.0, size=K)
-    problem = make_problem(edge_w, node_w, speeds, mu=MU, device="cuda")
-    del edge_w
-    torch.cuda.synchronize()
-    log(f"  built in {time.perf_counter() - t0:.1f} s; speeds "
-        f"{np.round(speeds / speeds.sum(), 4).tolist()}")
 
     log("== phase 2: kernels vs plain twins on the card")
     err1, err2 = phase_kernels(D, ops, problem, rng)
@@ -4511,6 +4622,13 @@ def main() -> int:
             rec["examples_launches"] = {
                 run: counts[name]
                 for run, counts in examples["launches"].items()}
+    log("== phase 29: the contract linter on the card (repro_torch.analysis, "
+        "full grid)")
+    t0 = time.perf_counter()
+    lint = phase_analysis(card)
+    log(f"  phase 29: {time.perf_counter() - t0:.1f} s")
+    for rec in kernels:
+        rec["analysis_launches"] = lint["launches"][rec["name"]]
     log(f"  total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

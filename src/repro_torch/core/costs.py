@@ -36,6 +36,16 @@ C_FRAMEWORK = "c"     # Eq. 1
 CT_FRAMEWORK = "ct"   # Eq. 6
 FRAMEWORKS = (C_FRAMEWORK, CT_FRAMEWORK)
 
+# Declared asymptotic budgets for the dense representation, consumed by
+# the complexity analyzers (``repro_torch.analysis``, DESIGN.md §18).
+# Exponent caps per problem dimension: the (N, N) adjacency is the
+# representation floor, so dense paths may produce O(N^2) intermediates
+# and O(N^2 * K) work — anything steeper is a finding.
+DENSE_COMPLEXITY = {
+    "mem": {"n": 2.0, "k": 1.0},
+    "ops": {"n": 2.0, "k": 1.0},
+}
+
 
 def is_sparse(problem) -> bool:
     """True for a :class:`SparseProblem`, False for a dense

@@ -42,6 +42,18 @@ from .problem import (PartitionProblem, ProblemValidationError, _f32,
 EDGE_PAD_MULTIPLE = 128     # padded E is a multiple of this
 DEGREE_PAD_MULTIPLE = 8     # static max_degree rounds up to this
 
+# Declared asymptotic budgets for the sparse representation, consumed by
+# the complexity analyzers (``repro_torch.analysis``, DESIGN.md §18).
+# Sparse paths promise O(E + N*K) memory and work: at most linear in N
+# (at fixed degree), linear in E (the degree sweep), linear in K.  A
+# fitted N-exponent near 2 means some op materialized a dense
+# (N, N)-shaped intermediate — exactly the regression the sparse path
+# exists to prevent.
+SPARSE_COMPLEXITY = {
+    "mem": {"n": 1.0, "e": 1.0, "k": 1.0},
+    "ops": {"n": 1.0, "e": 1.0, "k": 1.0},
+}
+
 
 @dataclasses.dataclass(frozen=True)
 class SparseProblem:

@@ -90,6 +90,17 @@ _GRAPH_TICKS = 16
 # Least capacity of a lone run's buffer of telemetry tick rows.
 _TICK_ROWS = 4096
 
+# Declared asymptotic budget for the DES tick, consumed by the
+# complexity analyzers (``repro_torch.analysis``, DESIGN.md §18).  The
+# engine consumes the dense (N, N) topology and gathers over (lp, slot,
+# neighbour) windows, so a tick legitimately produces O(N^2)-shaped
+# intermediates (event_capacity is a static constant, not a problem
+# dimension).
+DES_COMPLEXITY = {
+    "mem": {"n": 2.0, "k": 1.0},
+    "ops": {"n": 2.0, "k": 1.0},
+}
+
 @dataclasses.dataclass(frozen=True)
 class DESConfig:
     num_lps: int

@@ -82,6 +82,36 @@ from . import accounting, faults, protocol
 from .views import ShardViews, boundary_stats, build_views, shard_node_values
 
 
+# Declared asymptotic budgets for the distributed drivers, consumed by
+# the complexity analyzers (``repro_torch.analysis``, DESIGN.md §18).
+# The drivers shard the dense representation, so per-driver memory/work
+# carry the dense budget; the paper's feasibility claim (§5 of arXiv
+# 1111.0875) lives in the collective schedule instead — see
+# DISTRIBUTED_COLLECTIVES below.
+DISTRIBUTED_COMPLEXITY = {
+    "mem": {"n": 2.0, "k": 1.0},
+    "ops": {"n": 2.0, "k": 1.0},
+}
+
+# Per-driver collective budget: total per-shard operand bytes of the
+# collectives a run issues, split into the per-round ("recurring": what a
+# second turn adds) and one-off ("setup") phases.  The emulated drivers
+# exchange through stacked buffers audited by the wire rules (§9.2), so
+# they must issue ZERO collectives; the collective driver gathers exactly
+# one candidate per round — one all_gather of a (4,) int32 message whose
+# per-shard operand is protocol.CANDIDATE_BYTES (``_gather_candidates``,
+# §14.5), independent of N — and issues no setup collective (only its
+# fault-injected runs all-reduce, ``_all_reduce``).
+DISTRIBUTED_COLLECTIVES = {
+    "distributed.refine": {"recurring_bytes": 0, "setup_bytes": 0},
+    "distributed.refine_traced": {"recurring_bytes": 0, "setup_bytes": 0},
+    "distributed.refine_simultaneous": {"recurring_bytes": 0,
+                                        "setup_bytes": 0},
+    "distributed.shard_map": {"recurring_bytes": protocol.CANDIDATE_BYTES,
+                              "setup_bytes": 0},
+}
+
+
 class WireMeasurement(NamedTuple):
     """Measured exchange bytes of one distributed run (DESIGN.md §14.5).
 

@@ -32,6 +32,24 @@ from .ssd_scan import ssd_scan_cuda, ssd_scan_twin
 if TYPE_CHECKING:
     from ..core.refine import DissatFn, SweepCandidateFn
 
+# Declared asymptotic budgets for the kernel-reduction entry points,
+# consumed by the complexity analyzers (``repro_torch.analysis``,
+# DESIGN.md §18) and keyed by registered entry-point name.  The dense
+# aggregate kernel (kernel 1) consumes the (N, N) adjacency's aggregate
+# (dense budget); the edge kernel (kernel 4) streams the edge list in
+# fixed chunks, so its outputs are O(N) and its work O(E * K) — the same
+# contract as the plain sparse path it replaces.
+KERNEL_COMPLEXITY = {
+    "refine.kernel": {
+        "mem": {"n": 2.0, "k": 1.0},
+        "ops": {"n": 2.0, "k": 1.0},
+    },
+    "refine.sparse.edge_kernel": {
+        "mem": {"n": 1.0, "e": 1.0, "k": 1.0},
+        "ops": {"n": 1.0, "e": 1.0, "k": 1.0},
+    },
+}
+
 
 def _on_card(t: torch.Tensor) -> bool:
     return t.device.type == "cuda"

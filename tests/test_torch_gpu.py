@@ -1378,3 +1378,47 @@ def test_sample_logits_distribution_on_the_card(card, top_k):
                            top_k=top_k) for _ in range(2)]
     assert draws[0].device.type == "cuda" and draws[0].dtype == torch.int32
     assert torch.equal(draws[0], draws[1])
+
+
+@pytest.mark.gpu
+def test_analysis_allocator_fits_match_the_table(card):
+    """``chip_smoke.py`` phase 29 (b): every entry point's ``mem_device``
+    exponents at the full grid on the card — the caching allocator's peak
+    during set-up plus one turn — within its declared ``mem`` budget plus
+    ``EXPONENT_TOL`` and within ``EXPECTATION_TOL`` of ``complexity.json``'s
+    ``full/cuda`` section; kernels 1, 3 and 4 launched on the way."""
+    from repro_torch.analysis import complexity_rules as cx
+    from repro_torch.analysis import entrypoints
+    from repro_torch.kernels import edge_block as E
+    cx.profile_entry_point.cache_clear()           # run them here
+    entrypoints.trace_entry_point_sized.cache_clear()
+    D.reset_launches()
+    E.reset_launches()
+    table = cx.load_table()["grids"]["full/cuda"]
+    profiles = cx.all_profiles("full", "cuda")
+    assert set(profiles) == {e.name
+                             for e in entrypoints.registered_entry_points()}
+    for name, prof in profiles.items():
+        budget = cx.declared_budget(entrypoints.entry_point(name))["mem"]
+        fits = prof["fits"]["mem_device"]
+        assert set(fits) == set(prof["fits"]["mem"]), name
+        for dim, got in fits.items():
+            assert got <= budget[dim] + cx.EXPONENT_TOL, (name, dim, got)
+            want = table[name]["fits"]["mem_device"][dim]
+            assert abs(got - want) <= cx.EXPECTATION_TOL, (name, dim, got)
+    launched = {**D.launches, **E.launches}
+    for name in ("dissat_from_aggregate", "dissat_from_aggregate_batched",
+                 "dissat_from_edges"):
+        assert launched[name] > 0, name
+
+
+@pytest.mark.gpu
+def test_analysis_finds_nothing_new_on_the_card(card):
+    """Every rule family at the full grid on the card reports only the
+    port's baseline."""
+    from repro_torch.analysis import (AnalysisContext, load_baseline,
+                                      run_rules, split_findings)
+    findings = run_rules(AnalysisContext(device="cuda"))
+    new, _, stale = split_findings(findings, load_baseline())
+    assert new == [], [f.id for f in new]
+    assert stale == set()

@@ -41,8 +41,8 @@ def test_port_imports_no_jax_and_no_reference():
 def test_every_port_module_is_listed():
     """The probe above walks the package; make sure the walk sees the
     kernel, core, model, serving, launch, partitioner, DES, distributed,
-    telemetry, training, planner, sharding, dry-run and example modules
-    the slices ship."""
+    telemetry, training, planner, sharding, dry-run, example and
+    contract-linter modules the slices ship."""
     names = {m.name for m in pkgutil.walk_packages(
         [str(REPO / "src" / "repro_torch")], "repro_torch.")}
     for mod in ("core.problem", "core.costs", "core.aggregate",
@@ -77,7 +77,11 @@ def test_every_port_module_is_listed():
                 "launch.train", "sharding.rules", "sharding.hints",
                 "configs.shapes", "launch.mesh", "launch.traffic",
                 "launch.flops", "launch.collectives", "launch.dryrun",
-                "moe_expert_rebalance", "train_lm", "serve_lm"):
+                "moe_expert_rebalance", "train_lm", "serve_lm",
+                "analysis", "analysis.registry", "analysis.docs_rules",
+                "analysis.ast_rules", "analysis.entrypoints",
+                "analysis.jaxpr_rules", "analysis.wire_rules",
+                "analysis.complexity_rules", "analysis.__main__"):
         assert f"repro_torch.{mod}" in names
 
 
