@@ -66,13 +66,20 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      elements 0, 13 and 31 run alone through ``refine`` equal the fleet
      bitwise; kernel 3 launched once per batched turn and kernel 1 never;
      element-turns per second batched against looped; a profiled window
-     of 256 batched turns;
+     of 256 batched turns; then the same 32 elements under
+     ``mode="simultaneous"`` and ``mode="multimove"`` (2 moves a machine,
+     move_prob 0.5), at most 64 sweeps, each one loop over the stack:
+     elements 0, 13 and 31 alone and one loop over those three equal the
+     fleet bitwise; executed fleet sweeps against the elements' sum, host
+     syncs a fleet sweep, one loop's wall against the looped runs';
  12. the sparse fleet — 4 weightings of ``random_degree_graph_edges(65536,
      seed=0)``: kernel 3 bitwise against its twin and kernel 1 on the
      fleet's initial sparse carry; 1024 batched ``refine`` turns, each
-     element bitwise its looped run; then the same cases under ``mode="multimove"``
-     (unbounded, move_prob 0.5, ε=1e-3, 24 sweeps), each bitwise a lone
-     ``refine_sweeps`` with the generator derived for its index;
+     element bitwise its looped run; then the same cases under
+     ``mode="multimove"`` (unbounded, move_prob 0.5, ε=1e-3, 24 sweeps),
+     one loop over the stack, each case bitwise a lone ``refine_sweeps``
+     with the generator derived for its index, with the same
+     measurements;
  13. attention kernels vs twins on the card — kernel 6 (decode attention,
      split over the cache's positions) at (B, H, Hkv, D, S) = (16, 20, 20,
      128, 4096), (4, 32, 8, 128, 1000), (3, 8, 1, 64, 777) and (16, 32, 32,
@@ -318,6 +325,11 @@ FLEET_K = 16
 FLEET_MAX_TURNS = 10_000
 FLEET_LOOPED = (0, 13, 31)       # elements also run alone through refine
 FLEET_PROFILE_TURNS = 256
+# phase 11's sweep modes over the same 32 elements: run_sweep's
+# "simultaneous" (§4.5) and "multimove" with these knobs, each a cap of
+# FLEET_SWEEPS sweeps (a cut for the script's time limit)
+FLEET_SWEEPS = 64
+FLEET_MULTIMOVE = dict(moves_per_machine=2, move_prob=0.5)
 SPARSE_FLEET_B = 4
 SPARSE_FLEET_N = 65536
 SPARSE_FLEET_K = 8
@@ -1685,20 +1697,119 @@ def phase_dense_fleet(D, cases, problems, r0, card):
     for ev in top:
         log(f"    {ev.key[:60]:60s} {ev.count:6d} x "
             f"{ev.self_device_time_total / max(ev.count, 1):8.2f} us")
+    for mode, kw in (("simultaneous", {}), ("multimove", FLEET_MULTIMOVE)):
+        phase_fleet_sweeps(D, cases, mode, kw, FLEET_SWEEPS, FLEET_LOOPED,
+                           card)
     return {"launches": launches, "batched_turns": batched_turns,
             "ms_per_batched_turn": 1e3 * wall / batched_turns,
             "element_turns_per_s": float(turns.sum() / wall),
             "looped_element_turns_per_s": looped}
 
 
+def _sweep_lone(case, index, mode, kw, max_sweeps):
+    """Case ``index``'s lone run of a sweep mode, with the coin generator
+    ``run_sweep`` derives for it (seed 0)."""
+    from repro_torch.core.refine import refine_simultaneous, refine_sweeps
+    from repro_torch.sweeps.runtime import case_generator
+    if mode == "simultaneous":
+        return refine_simultaneous(case.problem, case.assignment,
+                                   case.framework, max_sweeps=max_sweeps)
+    gen = (case_generator(0, index, "cuda")
+           if kw.get("move_prob", 1.0) < 1.0 else None)
+    return refine_sweeps(case.problem, case.assignment, case.framework,
+                         max_sweeps=max_sweeps, generator=gen, **kw)
+
+
+def _same_sweep_run(lone, result, trace) -> bool:
+    """A lone sweep run equals a fleet element (its result and its
+    (c0s, ct0s, active)) bitwise, dtypes included."""
+    got = list(result) + list(trace)
+    want = list(lone[0]) + list(lone[1])
+    return len(got) == len(want) and all(
+        a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(got, want))
+
+
+def phase_fleet_sweeps(D, cases, mode, kw, max_sweeps, lone_idx, card):
+    """A fleet through ``run_sweep(mode)``, one loop over the stack: its
+    executed fleet sweeps against Σ_b sweeps_b, its host syncs (the flag
+    reads in ``core/batch.py`` a fleet sweep), its wall against the lone
+    runs of the elements ``lone_idx`` and against one loop over those
+    elements alone; every lone run and that small loop's elements bitwise
+    the fleet's, and no kernel launched (the sweep modes reduce with the
+    assembled cost matrix, as the reference's vmapped sweeps do)."""
+    from repro_torch import sweeps
+    from repro_torch.core.batch import (refine_simultaneous_batched,
+                                        refine_sweeps_batched,
+                                        stack_problems, unstack_pytree)
+    from repro_torch.sweeps.runtime import case_generator
+    spec = sweeps.make_spec(cases, mode=mode, max_turns=max_sweeps, **kw)
+    D.reset_launches()
+    res, wall, syncs, where = count_syncs(lambda: sweeps.run_sweep(spec))
+    if any(D.launches.values()):
+        fail(f"the {mode} fleet launched kernels: {dict(D.launches)}")
+    turns = res.turns
+    fleet_sweeps, total = int(turns.max()), int(turns.sum())
+    loop_reads = max((c for site, c in where.items()
+                      if site.startswith("batch.py:")), default=0)
+    log(f"  run_sweep({mode}{', ' if kw else ''}"
+        f"{', '.join(f'{k}={v}' for k, v in kw.items())}), B={len(cases)}, "
+        f"cap {max_sweeps} sweeps: sweeps per element {int(turns.min())}-"
+        f"{fleet_sweeps}, converged {int(res.converged.sum())}/{len(cases)}"
+        f", {int(res.moves.sum())} moves; {fleet_sweeps} executed fleet "
+        f"sweeps against sum_b sweeps_b = {total}; {syncs} host syncs "
+        f"({loop_reads} flag reads of the loop, "
+        f"{loop_reads / max(fleet_sweeps, 1):.3f} a fleet sweep; by site "
+        f"{dict(where)}); {wall:.3f} s, "
+        f"{1e3 * wall / max(fleet_sweeps, 1):.3f} ms a fleet sweep [{card}]")
+    lone_idx = list(lone_idx)
+    if lone_idx == list(range(len(cases))):     # the fleet is that loop
+        small, small_wall = None, wall
+    else:
+        sub = [cases[e] for e in lone_idx]
+        sub_p = stack_problems([c.problem for c in sub])
+        sub_r0 = torch.stack([torch.as_tensor(
+            np.asarray(c.assignment, np.int32), device="cuda") for c in sub])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if mode == "simultaneous":
+            small = refine_simultaneous_batched(sub_p, sub_r0, "c",
+                                                max_sweeps=max_sweeps)
+        else:
+            gens = ([case_generator(0, e, "cuda") for e in lone_idx]
+                    if kw.get("move_prob", 1.0) < 1.0 else None)
+            small = refine_sweeps_batched(sub_p, sub_r0, "c",
+                                          max_sweeps=max_sweeps,
+                                          generators=gens, **kw)
+        torch.cuda.synchronize()
+        small_wall = time.perf_counter() - t0
+    lone_wall, lone_sweeps = 0.0, []
+    for j, e in enumerate(lone_idx):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lone = _sweep_lone(cases[e], e, mode, kw, max_sweeps)
+        torch.cuda.synchronize()
+        lone_wall += time.perf_counter() - t0
+        lone_sweeps.append(int(lone[0].num_turns))
+        if not _same_sweep_run(lone, res.results[e], res.traces[e]):
+            fail(f"{mode} fleet element {e} differs from its lone run")
+        if small is not None and not _same_sweep_run(
+                lone, *unstack_pytree(small, j)):
+            fail(f"{mode} loop over elements {lone_idx}: element {e} "
+                 f"differs from its lone run")
+    log(f"  elements {lone_idx} alone: sweeps {lone_sweeps}, bitwise "
+        f"equal to the fleet and to one loop over these {len(lone_idx)}; "
+        f"looped {lone_wall:.3f} s ({sum(lone_sweeps)} sweeps) against one "
+        f"loop {small_wall:.3f} s ({max(lone_sweeps)} fleet sweeps), "
+        f"{lone_wall / small_wall:.2f}x [{card}]")
+
+
 def phase_sparse_fleet(D, card):
     from repro_torch import sweeps
     from repro_torch.core.batch import stack_problems
-    from repro_torch.core.refine import refine, refine_sweeps
+    from repro_torch.core.refine import refine
     from repro_torch.core.sparse import make_sparse_problem
     from repro_torch.graphs.generators import (random_degree_graph_edges,
                                                random_weights_edges)
-    from repro_torch.sweeps.runtime import case_generator
     n, k = SPARSE_FLEET_N, SPARSE_FLEET_K
     snd, rcv = random_degree_graph_edges(n, seed=0)
     cases = []
@@ -1745,28 +1856,11 @@ def phase_sparse_fleet(D, card):
         f"({1e3 * t_loop / (SPARSE_FLEET_B * SPARSE_FLEET_TURNS):.4f} ms "
         f"per looped turn)")
 
-    cfg = dict(moves_per_machine=None, move_prob=0.5, epsilon=1e-3)
-    t0 = time.perf_counter()
-    res_m = sweeps.run_sweep(sweeps.make_spec(
-        cases, mode="multimove", max_turns=SPARSE_FLEET_SWEEPS, seed=0,
-        **cfg))
-    sweeps_done = res_m.turns
-    wall_m = time.perf_counter() - t0
-    log(f"  run_sweep(multimove, unbounded, move_prob 0.5, eps 1e-3): "
-        f"sweeps {sweeps_done.tolist()}, moves {res_m.moves.tolist()}, "
-        f"converged {res_m.converged.tolist()}, {wall_m:.3f} s")
-    for e, case in enumerate(cases):
-        one, trace = refine_sweeps(
-            case.problem, case.assignment, "c",
-            max_sweeps=SPARSE_FLEET_SWEEPS,
-            generator=case_generator(0, e, "cuda"), **cfg)
-        same = (all(torch.equal(a, c) for a, c in zip(one, res_m.results[e]))
-                and all(torch.equal(a, c)
-                        for a, c in zip(trace, res_m.traces[e])))
-        if not same:
-            fail(f"multimove case {e} differs from its lone refine_sweeps")
-    log("  every multimove case bitwise equal to a lone refine_sweeps with "
-        "its derived generator")
+    # the unbounded multimove fleet, one loop over the stack, each case
+    # bitwise a lone refine_sweeps with the generator derived for its index
+    phase_fleet_sweeps(D, cases, "multimove", dict(
+        moves_per_machine=None, move_prob=0.5, epsilon=1e-3),
+        SPARSE_FLEET_SWEEPS, range(SPARSE_FLEET_B), card)
     return err
 
 

@@ -402,14 +402,19 @@ _REGISTERED_ARMS = frozenset({
     ("src/repro_torch/core/costs.py", "global_cost_c0"),
     ("src/repro_torch/core/aggregate.py", "apply_move"),
     ("src/repro_torch/core/aggregate.py", "apply_sweep"),
-    ("src/repro_torch/core/aggregate.py", "apply_moves"),
+    ("src/repro_torch/core/aggregate.py", "moves_aggregate"),
     ("src/repro_torch/core/aggregate.py", "apply_cluster_move"),
     ("src/repro_torch/core/cluster.py", "h_hop_mask"),
     ("src/repro_torch/core/batch.py", "problem_shape_key"),
+    ("src/repro_torch/core/batch.py", "_refine_sweeps_fleet"),
+    ("src/repro_torch/core/batch.py", "_apply_unbounded"),
 })
 
-_BATCH_ARM = ("src/repro_torch/core/batch.py", "problem_shape_key")
-_CORE_SPARSE_ARMS = frozenset(a for a in _REGISTERED_ARMS if a != _BATCH_ARM)
+# the fleet's own arms (its stacking key, its sweep loop's window and
+# mover-buffer updates), as the reference sets its batch.py arms apart
+_BATCH_ARMS = frozenset(a for a in _REGISTERED_ARMS
+                        if a[0] == "src/repro_torch/core/batch.py")
+_CORE_SPARSE_ARMS = _REGISTERED_ARMS - _BATCH_ARMS
 
 # (file, function) definitions whose presence covers the dense cells
 _DENSE_DEFS = {
@@ -485,8 +490,8 @@ def dispatch_matrix(ctx: AnalysisContext) -> dict[str, dict]:
                           if (p, f) not in sites)
     matrix["sparse-controller"] = {"covered": not core_missing,
                                    "missing": core_missing}
-    batched_missing = core_missing + (
-        [] if _BATCH_ARM in sites else ["::".join(_BATCH_ARM)])
+    batched_missing = core_missing + [
+        "::".join(a) for a in _BATCH_ARMS if a not in sites]
     matrix["sparse-batched"] = {"covered": not batched_missing,
                                 "missing": sorted(batched_missing)}
     dist_sites = sorted(f"{p}::{f}" for p, f in sites

@@ -49,12 +49,13 @@ _OBS_DIR = "src/repro_torch/obs/"
 
 # The most host reads the recorder-free set-up + one turn needs: the
 # sweep loops read their convergence flag once a sweep (``refine_sweeps``'
-# ``bool``), the batched sweep drivers once a sweep per element; the turn
-# loops read nothing before their first ``_SYNC_EVERY`` boundary.  The
-# unbounded sweep reads its flag and count with ``.tolist()`` (a
-# device-to-host copy, not ``_local_scalar_dense``) and, when a node
-# moves, ``add_windows``' deepest row group (one read; whether a node
-# moves in the first sweep depends on the device's coin draws).
+# ``bool``); the turn loops read nothing before their first
+# ``_SYNC_EVERY`` boundary.  The unbounded sweep reads its flag and count
+# with ``.tolist()`` (a device-to-host copy, not ``_local_scalar_dense``)
+# and, when a node moves, ``add_windows``' deepest row group (one read;
+# whether a node moves in the first sweep depends on the device's coin
+# draws).  The batched sweep entry points read every element's flag once a
+# fleet sweep with one ``.tolist()``, so none of their reads is counted.
 HOST_READS = {
     "refine": 0, "refine.recompute": 0, "refine.theta": 0,
     "refine.kernel": 0, "refine_traced": 0, "refine_simultaneous": 1,
@@ -62,7 +63,7 @@ HOST_READS = {
     "refine.sparse.edge_kernel": 0, "refine_sweeps": 1,
     "refine_sweeps.multi": 1, "refine_sweeps.sparse.unbounded": 1,
     "batch.refine": 0, "batch.refine_traced": 0,
-    "batch.refine_simultaneous": 2, "batch.refine_sweeps": 2,
+    "batch.refine_simultaneous": 0, "batch.refine_sweeps": 0,
     "distributed.refine": 0, "distributed.refine_traced": 0,
     "distributed.refine_simultaneous": 1, "distributed.shard_map": 0,
     "des.tick": 0,

@@ -104,34 +104,60 @@ def potential_deltas(agg_row, b_node, source, dest, loads, speeds, mu,
     return dc0.reshape(dest.shape[:-1]), dct0.reshape(dest.shape[:-1])
 
 
-def add_windows(aggregate, targets, contrib, rounds: int | None = None):
-    """``aggregate`` with ``contrib[m]`` added to row ``targets[m]`` for
-    every m, one addition at a time in ascending m, as the reference's
-    sequential scatter-add does — without float atomics.
+class WindowPlan(NamedTuple):
+    """:func:`add_windows`' contributions in the order they apply."""
+    rows: torch.Tensor      # target rows, sorted stably; n for a zero one
+    contrib: torch.Tensor   # the contributions in that order
+    rank: torch.Tensor      # each one's place in its row's group
 
-    Zero contributions are identities (an aggregate entry is never -0.0)
-    and go to a scratch row.  The others are grouped by target, order
-    kept (a stable sort), and applied in rounds: round j adds each
-    target's j-th contribution, so no two writes of a round share a row.
-    ``rounds`` bounds the deepest group; when it is None the depth is
-    read back from the device (one host sync).  Returns a new tensor.
-    """
-    n, k = aggregate.shape
+
+def plan_windows(n: int, targets, contrib) -> WindowPlan:
+    """Group the nonzero contributions by target row, order kept (a
+    stable sort); zero ones go to the scratch row ``n``."""
     nonzero = (contrib != 0).any(dim=1)
     t = torch.where(nonzero, targets.long(), n)
     t_sorted, order = torch.sort(t, stable=True)
     c_sorted = contrib.index_select(0, order)
     rank = torch.arange(t.shape[0], device=t.device) \
         - torch.searchsorted(t_sorted, t_sorted)
-    if rounds is None:
-        # host sync: the most nonzero contributions any one row receives
-        rounds = int(torch.where(t_sorted < n, rank + 1, 0).max()) \
-            if t.shape[0] else 0
+    return WindowPlan(t_sorted, c_sorted, rank)
+
+
+def window_depth(plan: WindowPlan, n: int) -> torch.Tensor:
+    """The most nonzero contributions any one row receives (a 0-d device
+    tensor; the plan must not be empty)."""
+    return torch.where(plan.rows < n, plan.rank + 1, 0).max()
+
+
+def apply_windows(aggregate, plan: WindowPlan, rounds: int):
+    """``aggregate`` with the planned contributions added in ``rounds``
+    rounds: round j adds each row's j-th contribution, so no two writes
+    of a round share a row.  Returns a new tensor."""
+    n, k = aggregate.shape
     out = torch.cat([aggregate, aggregate.new_zeros((1, k))])
     for j in range(rounds):
-        row = torch.where(rank == j, t_sorted, n)
-        out[row] = out.index_select(0, row) + c_sorted
+        row = torch.where(plan.rank == j, plan.rows, n)
+        out[row] = out.index_select(0, row) + plan.contrib
     return out[:n]
+
+
+def add_windows(aggregate, targets, contrib, rounds: int | None = None):
+    """``aggregate`` with ``contrib[m]`` added to row ``targets[m]`` for
+    every m, one addition at a time in ascending m, as the reference's
+    sequential scatter-add does — without float atomics.
+
+    Zero contributions are identities (an aggregate entry is never -0.0)
+    and go to a scratch row.  The others are grouped by target
+    (:func:`plan_windows`) and applied in rounds (:func:`apply_windows`).
+    ``rounds`` bounds the deepest group; when it is None the depth is
+    read back from the device (one host sync).  Returns a new tensor.
+    """
+    n = aggregate.shape[0]
+    plan = plan_windows(n, targets, contrib)
+    if rounds is None:
+        # host sync: the most nonzero contributions any one row receives
+        rounds = int(window_depth(plan, n)) if targets.shape[0] else 0
+    return apply_windows(aggregate, plan, rounds)
 
 
 def apply_move(problem, agg: AggregateState, node, source, dest, do_move,
@@ -291,24 +317,33 @@ def apply_moves(problem, agg: AggregateState, nodes, dests, will_move,
 
     Sparse problems add the R moved nodes' incident-edge windows
     (O(R·max_degree·K)); dense ones one (N, R) @ (R, K) product of the
-    gathered adjacency columns against the ``±1`` column deltas.
+    gathered adjacency columns against the ``±1`` column deltas
+    (:func:`moves_aggregate`).
     """
+    nodes = nodes.long()
+    aggregate = moves_aggregate(problem, agg.aggregate, agg.assignment,
+                                nodes, dests, will_move)
+    assignment = _set_assignment(agg.assignment, nodes, dests, will_move)
+    return _closed_form_state(problem, aggregate, assignment, total_weight)
+
+
+def moves_aggregate(problem, aggregate, assignment, nodes, dests,
+                    will_move):
+    """The aggregate after :func:`apply_moves`' rank-R update, from the
+    carried ``aggregate`` and ``assignment`` (the movers' sources)."""
     k = problem.num_machines
-    dt = agg.aggregate.dtype
+    dt = aggregate.dtype
     nodes = nodes.long()
     mask = will_move.to(dt)                                    # (R,)
-    sources = agg.assignment.index_select(0, nodes).long()
+    sources = assignment.index_select(0, nodes).long()
     kidx = torch.arange(k, device=problem.device)
     col_delta = (dests.long()[:, None] == kidx[None, :]).to(dt) \
         - (sources[:, None] == kidx[None, :]).to(dt)          # (R, K)
     if costs.is_sparse(problem):
-        aggregate = _add_moved_windows(problem, agg.aggregate, nodes,
-                                       col_delta, mask)
-    else:
-        cols = problem.adjacency.index_select(1, nodes) * mask[None, :]
-        aggregate = agg.aggregate + cols @ col_delta
-    assignment = _set_assignment(agg.assignment, nodes, dests, will_move)
-    return _closed_form_state(problem, aggregate, assignment, total_weight)
+        return _add_moved_windows(problem, aggregate, nodes, col_delta,
+                                  mask)
+    cols = problem.adjacency.index_select(1, nodes) * mask[None, :]
+    return aggregate + cols @ col_delta
 
 
 def apply_cluster_move(problem, agg: AggregateState, mask, source, dest,

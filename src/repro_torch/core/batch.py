@@ -32,20 +32,36 @@ every ``verify_every`` rebuild are built element by element with the
 unbatched ``init_aggregate_state``, never with one ``bmm`` whose
 summation order may differ from the looped product; each element's
 weight sum is its own ``torch.sum``; and every per-turn op is the
-unbatched op with a batch axis, with no float atomics.
+unbatched op with a batch axis, with no float atomics.  The per-element
+calls read each element through :func:`_element`, which on the card
+copies a slice of the stack that starts off a 256-byte boundary: there a
+vector that starts off the 16-byte grid is split, and so summed,
+differently from a lone problem's.
 
 Stacked problems keep their dataclass type, so ``num_nodes`` and
 ``num_machines`` read B there; batched code reads N and K from the
 trailing dimensions and never calls ``validate()`` on a stack.
 
-Run element by element (one unbatched run each, results stacked):
-the recompute path (``incremental=False``, which has no batched kernel in
-the reference either), ``refine_simultaneous_batched`` and
-``refine_sweeps_batched``.  The sweep modes read counts back per element
-(the unbounded mode's mover count and ``add_windows``' depth) and each
-element exits on its own sweep, so one loop would wait on the slowest
-element's reads; their per-element semantics are those of
-:func:`~repro_torch.core.refine.refine_sweeps`.
+The sweep modes (``refine_simultaneous_batched``, ``refine_sweeps_batched``)
+and the recompute path (``incremental=False``) run one loop over the stack
+as well, as the reference's one vmapped program does.  A sweep reduces the
+whole stack in one call and elects, thresholds and counts every element's
+movers with the unbatched ops and a batch axis; the host then reads every
+element's flag (with the unbounded mode's accepted counts, or the sparse
+windows' deepest row group) as one (B,) transfer, and an element whose
+flag is down has converged and is left exactly where its own run left it.
+The loop stops when no element is left, so it runs max_b sweeps_b sweeps
+where a Python loop over the elements would run Σ_b sweeps_b.  What a
+stacked call would sum in another order stays element by element: the
+closed-form loads and potentials (sums over N and K), the dense rank-R
+products of ``apply_moves``, the unbounded mode's rebuilds and every
+recomputed aggregate.  Each element draws its acceptance coins from its
+own generator, only on the sweeps it is active, in the shape its looped
+run draws them.  A sparse fleet's window updates go through one
+:func:`~repro_torch.core.aggregate.add_windows` over the (B·N, K) view,
+each element's rows offset by b·N, so no window writes another
+element's rows and a round with none of an element's rows leaves it
+unchanged.
 
 The ``SweepSpec → SweepResult`` runtime lives in
 :mod:`repro_torch.sweeps`.
@@ -61,11 +77,12 @@ import torch
 from ..kernels import ops
 from . import aggregate as agg_mod
 from . import costs
-from .problem import PartitionProblem
+from . import refine as refine_mod
+from .problem import PartitionProblem, make_state
 from .refine import (_SYNC_EVERY, DEFAULT_TOL, RefineResult, Trace,
-                     _assembled_dissat, _turn_incremental, refine,
-                     refine_simultaneous, refine_sweeps, refine_traced)
-from .sparse import SparseProblem
+                     _adaptive_coin, _assembled_dissat, _mover_buffer,
+                     _top_m, _turn_from_cost, _turn_incremental)
+from .sparse import SparseProblem, node_incident_edges_batched
 
 
 # ---------------------------------------------------------------------------
@@ -191,8 +208,32 @@ def _stack_theta(theta, num_problems: int, num_nodes: int, device=None):
     return theta.expand(num_problems, num_nodes).contiguous()
 
 
+# Byte boundary an element's tensors start on in the per-element calls on
+# the card: its allocator's fresh tensors start on one, and its reductions
+# split a vector that starts off the 16-byte grid differently (so sum it
+# in another order).  The CPU's per-element calls read views, held bitwise
+# to the looped runs by the tests.
+_ALIGN = 256
+
+
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """``x``, copied if it lies on the card and starts off an
+    ``_ALIGN``-byte boundary."""
+    if x.device.type != "cuda" or x.data_ptr() % _ALIGN == 0:
+        return x
+    return x.clone()
+
+
+def _element(problems, b: int):
+    """Element b of a stacked problem for the per-element calls (each
+    element's weight sum, closed forms, products and rebuilds): views into
+    the stack, each through :func:`_aligned`, so those calls sum as a lone
+    problem's do."""
+    return _map(lambda leaf: _aligned(leaf[b]), problems)
+
+
 def _prepare(problems, assignments, theta):
-    """The element problems (views into the stack), the (B, N) int32
+    """The element problems (:func:`_element`), the (B, N) int32
     assignments and the (B, N) theta or None, all on the stack's
     device."""
     dev = problems.device
@@ -201,12 +242,8 @@ def _prepare(problems, assignments, theta):
     else:
         r0 = torch.as_tensor(np.asarray(assignments, np.int32), device=dev)
     bsz, n = r0.shape
-    elements = [unstack_pytree(problems, b) for b in range(bsz)]
+    elements = [_element(problems, b) for b in range(bsz)]
     return elements, r0, _stack_theta(theta, bsz, n, dev)
-
-
-def _row(theta, b: int):
-    return None if theta is None else theta[b]
 
 
 def _init_carry(elements, r0):
@@ -257,15 +294,14 @@ def refine_batched(problems, assignments,
     card and its twin on the CPU
     (:func:`~repro_torch.kernels.ops.make_aggregate_dissat_fn_batched`).
     ``verify_every=M`` rebuilds the carry of every still-active element
-    every M turns.  ``incremental=False`` runs element by element through
-    the unbatched recompute path.
+    every M turns.  ``incremental=False`` runs the recompute path as the
+    same one loop: each turn rebuilds the aggregate of every element not
+    yet seen converged by its own product, as the unbatched turn does.
     """
     elements, r0, theta = _prepare(problems, assignments, theta)
     if not incremental:
-        return stack_pytrees([
-            refine(p, r0[b], framework, max_turns=max_turns, tol=tol,
-                   incremental=False, theta=_row(theta, b))
-            for b, p in enumerate(elements)])
+        return _refine_recompute(problems, elements, r0, framework,
+                                 max_turns, tol, theta)
     if dissat_fn is None:
         dissat_fn = ops.make_aggregate_dissat_fn_batched()
     bsz = r0.shape[0]
@@ -308,32 +344,48 @@ def refine_traced_batched(problems, assignments,
     (``_assembled_dissat``) over the whole stack and resyncs every element
     at every ``verify_every`` boundary, as each looped run does; each
     element's trace, result and carried potentials equal its looped run
-    bitwise.  ``incremental=False`` runs element by element.
+    bitwise.  ``incremental=False`` runs the recompute path as the same
+    one loop, every element's aggregate and potentials rebuilt every turn
+    by its own products, as the unbatched traced loop does.
     """
     elements, r0, theta = _prepare(problems, assignments, theta)
-    if not incremental:
-        return stack_pytrees([
-            refine_traced(p, r0[b], framework, max_turns=max_turns, tol=tol,
-                          incremental=False, theta=_row(theta, b))
-            for b, p in enumerate(elements)])
     bsz = r0.shape[0]
     k = problems.speeds.shape[-1]
     dev = r0.device
-    carry, total_b = _init_carry(elements, r0)
+    if incremental:
+        carry, total_b = _init_carry(elements, r0)
+    else:
+        carry, total_b = _recompute_carry(elements, r0)
+        aggregate = None
     idle = torch.zeros(bsz, dtype=torch.int32, device=dev)
     max_drift = torch.zeros(bsz, device=dev)
     rows = []
     for t in range(max_turns):
         active = idle < k
-        carry, res, _ = _turn_incremental(problems, carry, t % k,
-                                          framework, tol, total_b,
-                                          _assembled_dissat, theta, active)
+        if incremental:
+            carry, res, _ = _turn_incremental(problems, carry, t % k,
+                                              framework, tol, total_b,
+                                              _assembled_dissat, theta,
+                                              active)
+            c0, ct0 = carry.c0, carry.ct0
+        else:
+            aggregate = _aggregates(elements, carry.assignment, aggregate,
+                                    [True] * bsz)
+            carry, res, _ = _turn_from_cost(
+                problems, carry, _fleet_costs(problems, carry, aggregate,
+                                              framework, total_b),
+                t % k, tol, theta, active)
+            c0 = torch.stack([costs.global_cost_c0(p, carry.assignment[b])
+                              for b, p in enumerate(elements)])
+            ct0 = torch.stack([costs.global_cost_ct0(p, carry.assignment[b])
+                               for b, p in enumerate(elements)])
         idle = torch.where(res.moved, 0, idle + 1)
-        if verify_every and (t + 1) % verify_every == 0:
+        if incremental and verify_every and (t + 1) % verify_every == 0:
             carry, max_drift = _resync(elements, carry, max_drift,
                                        [True] * bsz)
+            c0, ct0 = carry.c0, carry.ct0
         rows.append((res.moved, res.node, res.source, res.dest, res.gain,
-                     carry.c0, carry.ct0, active))
+                     c0, ct0, active))
     trace = Trace(*(torch.stack(col, dim=1) for col in zip(*rows)))
     result = RefineResult(
         assignment=carry.assignment, loads=carry.loads,
@@ -347,17 +399,16 @@ def refine_simultaneous_batched(problems, assignments,
                                 framework: str = costs.C_FRAMEWORK,
                                 max_sweeps: int = 256,
                                 tol: float = DEFAULT_TOL, theta=None):
-    """§4.5 simultaneous-sweep mode over a problem stack (DESIGN.md §12),
-    element by element through the unbatched
-    :func:`~repro_torch.core.refine.refine_simultaneous`, in order.
+    """§4.5 simultaneous-sweep mode over a problem stack (DESIGN.md §12):
+    one loop over the stack, each element bitwise its unbatched
+    :func:`~repro_torch.core.refine.refine_simultaneous` (the degenerate
+    setting of :func:`refine_sweeps_batched`).
 
     Returns ``(RefineResult, (c0s, ct0s, active))`` with leading batch
-    axes (the per-sweep potential traces are (B, max_sweeps))."""
-    elements, r0, theta = _prepare(problems, assignments, theta)
-    return stack_pytrees([
-        refine_simultaneous(p, r0[b], framework, max_sweeps=max_sweeps,
-                            tol=tol, theta=_row(theta, b))
-        for b, p in enumerate(elements)])
+    axes (the per-sweep potential traces are (B, max_sweeps), each
+    element's padded after its last sweep as its looped run pads them)."""
+    return _refine_sweeps_fleet(problems, assignments, framework,
+                                max_sweeps, tol, theta)
 
 
 def refine_sweeps_batched(problems, assignments,
@@ -367,31 +418,389 @@ def refine_sweeps_batched(problems, assignments,
                           move_prob: float = 1.0, epsilon: float = 0.0,
                           generators: Sequence[torch.Generator] | None = None):
     """:func:`repro_torch.core.refine.refine_sweeps` over a problem stack
-    (DESIGN.md §17): multi-move probabilistic sweep fleets, run element by
-    element, in order, each element through the unbatched
-    ``refine_sweeps`` (its reads and its early exit are its own).
+    (DESIGN.md §17): multi-move probabilistic sweep fleets in one loop
+    over the stack, one host read a fleet sweep (two in the unbounded
+    mode's mover-buffer sweeps of a sparse fleet, the second
+    ``add_windows``' depth), each element bitwise its looped run.
 
     ``generators`` is a (B,) sequence of ``torch.Generator`` on the
     problems' device, one per element, required exactly when
     ``move_prob < 1``; element b draws its coins from ``generators[b]``
-    alone, so its coin sequence is that of its looped run.  The sweep
-    configuration is shared across the batch, like ``framework``.
-    Returns ``(RefineResult, (c0s, ct0s, active))`` with leading batch
-    axes."""
-    elements, r0, theta = _prepare(problems, assignments, theta)
+    alone and only on the sweeps it is active, so its coin sequence and
+    its generator's final state are those of its looped run.  The sweep
+    configuration is shared across the batch, like ``framework``;
+    ``epsilon``'s threshold is each element's own.  Returns
+    ``(RefineResult, (c0s, ct0s, active))`` with leading batch axes."""
     if move_prob < 1.0:
         if generators is None:
             raise ValueError("refine_sweeps_batched(move_prob < 1) needs a "
                              "(B,) sequence of torch.Generator "
                              "`generators`, one per element")
-    if generators is not None and len(generators) != len(elements):
+    bsz = np.shape(assignments)[0]
+    if generators is not None and len(generators) != bsz:
         raise ValueError(f"got {len(generators)} generators for "
-                         f"{len(elements)} elements")
-    return stack_pytrees([
-        refine_sweeps(p, r0[b], framework, max_sweeps=max_sweeps, tol=tol,
-                      theta=_row(theta, b),
-                      moves_per_machine=moves_per_machine,
-                      move_prob=move_prob, epsilon=epsilon,
-                      generator=None if generators is None
-                      else generators[b])
-        for b, p in enumerate(elements)])
+                         f"{bsz} elements")
+    return _refine_sweeps_fleet(problems, assignments, framework,
+                                max_sweeps, tol, theta, moves_per_machine,
+                                move_prob, epsilon, generators)
+
+
+# ---------------------------------------------------------------------------
+# the one loop of the sweep modes
+# ---------------------------------------------------------------------------
+
+def _refine_sweeps_fleet(problems, assignments, framework: str,
+                         max_sweeps: int, tol: float, theta,
+                         moves_per_machine: int | None = 1,
+                         move_prob: float = 1.0, epsilon: float = 0.0,
+                         generators=None):
+    """:func:`~repro_torch.core.refine._refine_sweeps` over a stack: the
+    same sweep body with a batch axis, ``live`` (the host's list of the
+    elements still sweeping) and ``active`` (its device copy) masking the
+    elements that have converged."""
+    costs.is_sparse(problems)       # TypeError for anything else
+    elements, r0, theta = _prepare(problems, assignments, theta)
+    bsz, n = r0.shape
+    k = problems.speeds.shape[-1]
+    dev = r0.device
+    sparse = costs.is_sparse(problems)
+    elected = moves_per_machine == 1
+    unbounded = moves_per_machine is None
+    carry, total_b = _init_carry(elements, r0)
+    sq_weights = [p.node_weights * p.node_weights for p in elements]
+    kidx = torch.arange(k, device=dev)
+    live = [True] * bsz
+    converged = [False] * bsz
+    active = torch.ones(bsz, dtype=torch.bool, device=dev)
+    moves = torch.zeros(bsz, dtype=torch.int64, device=dev)
+    c0s, ct0s, actives = [], [], []
+    for _ in range(max_sweeps):
+        if epsilon:
+            pot = carry.c0 if framework == costs.C_FRAMEWORK else carry.ct0
+            thresh = (tol + epsilon * torch.abs(pot) / n)[:, None]
+        else:
+            thresh = tol
+        dissat, best = refine_mod._assembled_dissat(
+            carry.aggregate, carry.assignment, problems.node_weights,
+            carry.loads, problems.speeds, problems.mu, framework, total_b,
+            theta)
+        if unbounded:
+            nodes, dest, cand = None, best, dissat > thresh
+        else:
+            owned = carry.assignment.long()[:, None, :] == kidx[:, None]
+            masked = torch.where(owned, dissat[:, None, :],
+                                 -float("inf"))              # (B, K, N)
+            if elected:
+                # the most dissatisfied owned node (first maximum)
+                nodes = torch.argmax(masked, dim=-1)
+                gains = torch.max(masked, dim=-1).values
+            else:
+                gains, nodes = _top_m(masked.reshape(bsz * k, n),
+                                      moves_per_machine)
+                gains = gains.reshape(bsz, -1)
+                nodes = nodes.reshape(bsz, -1)
+            dest = best.gather(1, nodes)
+            cand = gains > thresh
+        cand = cand & active[:, None]
+        if move_prob < 1.0:
+            cand, coin = _fleet_coins(elements, carry, best, cand, live,
+                                      move_prob, generators, unbounded)
+            accept = cand & coin
+        else:
+            accept = cand
+        any_cand = torch.any(cand, dim=1)
+        n_acc = torch.sum(accept.to(torch.int32), dim=1)
+        read = [any_cand.to(torch.int64)]
+        if unbounded:
+            read.append(n_acc)
+        elif sparse:
+            rows, contrib = _fleet_windows(problems, carry.assignment,
+                                           nodes, dest, accept)
+            plan = agg_mod.plan_windows(bsz * n, rows, contrib)
+            read.append(agg_mod.window_depth(plan, bsz * n)[None])
+        # host sync: every element's flag, with its accepted count
+        # (unbounded) or the windows' deepest row group (sparse), at once
+        vals = torch.cat(read).tolist()
+        doing = {b for b in range(bsz) if live[b] and vals[b]}
+        for b in range(bsz):
+            converged[b] = converged[b] or (live[b] and not vals[b])
+        live = [b in doing for b in range(bsz)]
+        if not doing:
+            break
+        active = active & any_cand
+        if unbounded:
+            carry = _apply_unbounded(problems, elements, sq_weights, carry,
+                                     accept, best, n_acc, vals[bsz:], doing,
+                                     total_b)
+        else:
+            if sparse:
+                aggregate = agg_mod.apply_windows(
+                    carry.aggregate.reshape(bsz * n, k), plan,
+                    vals[bsz]).reshape(bsz, n, k)
+            elif elected:
+                aggregate = torch.where(
+                    active[:, None, None],
+                    _sweep_columns(problems.adjacency, carry.aggregate,
+                                   nodes, dest, accept), carry.aggregate)
+            else:
+                aggregate = _products(elements, carry, {
+                    b: (nodes[b], dest[b], accept[b]) for b in doing})
+            carry = _closed_forms(elements, sq_weights, carry, aggregate,
+                                  _set_assignments(carry.assignment, nodes,
+                                                   dest, accept),
+                                  total_b, doing)
+        moves = moves + n_acc
+        c0s.append(carry.c0)
+        ct0s.append(carry.ct0)
+        actives.append(active)
+    pad = max_sweeps - len(actives)
+    c0s += [carry.c0] * pad
+    ct0s += [carry.ct0] * pad
+    actives += [torch.zeros(bsz, dtype=torch.bool, device=dev)] * pad
+    active = torch.stack(actives, dim=1)
+    result = RefineResult(
+        assignment=carry.assignment, loads=carry.loads, num_moves=moves,
+        num_turns=torch.sum(active.to(torch.int32), dim=1),
+        converged=torch.tensor(converged, device=dev),
+        aggregate_drift=torch.zeros(bsz, device=dev))
+    return result, (torch.stack(c0s, dim=1), torch.stack(ct0s, dim=1),
+                    active)
+
+
+def _fleet_coins(elements, carry, best, cand, live: list[bool],
+                 move_prob: float, generators, unbounded: bool):
+    """``(cand, coin)`` for a sweep of a fleet: each live element draws
+    its coins from its own generator in the shape its looped run draws
+    them (the unbounded mode's adaptive coin also drops candidates); the
+    others draw nothing."""
+    cands, coins = [], []
+    for b, p in enumerate(elements):
+        c = cand[b]
+        if not live[b]:
+            coin = torch.zeros_like(c)
+        elif unbounded:
+            coin, c = _adaptive_coin(unstack_pytree(carry, b), p, best[b], c,
+                                     move_prob, generators[b])
+        else:
+            coin = torch.rand(c.shape, generator=generators[b],
+                              device=c.device) < move_prob
+        cands.append(c)
+        coins.append(coin)
+    return torch.stack(cands), torch.stack(coins)
+
+
+def _fleet_windows(problems, assignment, nodes, dests, will_move):
+    """The (rows, contributions) of R moves in every element of a sparse
+    fleet, for one :func:`~repro_torch.core.aggregate.add_windows` over
+    the (B·N, K) view: element b's rows offset by b·N, each element's
+    windows in its looped run's (r, d) order, masked slots zero."""
+    bsz, n = assignment.shape
+    k = problems.speeds.shape[-1]
+    dt = problems.node_weights.dtype
+    nodes = nodes.long()
+    sources = assignment.gather(1, nodes).long()
+    kidx = torch.arange(k, device=assignment.device)
+    col_delta = (dests.long()[..., None] == kidx).to(dt) \
+        - (sources[..., None] == kidx).to(dt)                 # (B, R, K)
+    nbrs, ws = node_incident_edges_batched(problems, nodes)   # (B, R, D)
+    ws = ws * will_move.to(dt)[:, :, None]
+    contrib = ws[..., None] * col_delta[:, :, None, :]       # (B, R, D, K)
+    rows = nbrs + n * torch.arange(bsz, device=nbrs.device)[:, None, None]
+    return rows.reshape(-1), contrib.reshape(-1, k)
+
+
+def _sweep_columns(adjacency, aggregate, picks, dests, will_move):
+    """:func:`~repro_torch.core.aggregate.apply_sweep`'s dense rank-K
+    update with a batch axis: the same elementwise ops, duplicate
+    destinations summed in machine order."""
+    bsz, n, k = aggregate.shape
+    dt = aggregate.dtype
+    mask = will_move.to(dt)                                    # (B, K)
+    kidx = torch.arange(k, device=aggregate.device)
+    dest_hot = (dests.long()[:, :, None] == kidx).to(dt)       # (B, K, K)
+    cols = adjacency.gather(2, picks[:, None, :].expand(bsz, n, k)) \
+        * mask[:, None, :]
+    out = aggregate - cols                                     # sources
+    for m in range(k):
+        out = out + cols[:, :, m:m + 1] * dest_hot[:, m][:, None, :]
+    return out
+
+
+def _set_assignments(assignment, nodes, dests, will_move):
+    """The (B, N) ``assignment`` with each element's ``nodes[b, r]`` set
+    to ``dests[b, r]`` where ``will_move[b, r]``; masked writes go to a
+    scratch slot and are dropped."""
+    bsz, n = assignment.shape
+    offsets = n * torch.arange(bsz, device=assignment.device)[:, None]
+    safe = torch.where(will_move, nodes.long() + offsets, bsz * n)
+    out = torch.cat([assignment.reshape(-1), assignment.new_zeros(1)])
+    out[safe.reshape(-1)] = dests.to(assignment.dtype).reshape(-1)
+    return out[:bsz * n].view(bsz, n)
+
+
+def _products(elements, carry, moves: dict):
+    """The (B, N, K) aggregate after each element b in ``moves`` applies
+    its ``(nodes, dests, will_move)`` by ``apply_moves``' dense (N, R) @
+    (R, K) product, with its own R (a batched or padded product would
+    sum in another order); the others keep theirs."""
+    return torch.stack([
+        agg_mod.moves_aggregate(elements[b], carry.aggregate[b],
+                                carry.assignment[b], *moves[b])
+        if b in moves else carry.aggregate[b]
+        for b in range(len(elements))])
+
+
+def _closed_forms(elements, sq_weights, carry, aggregate, assignment,
+                  total_b, doing, rebuilt=None):
+    """The fleet's carry after a sweep: ``aggregate`` and ``assignment``,
+    and for each element in ``doing`` the loads and potentials of
+    ``apply_moves``' closed forms (``machine_loads``, ``cut_from_aggregate``,
+    ``potentials_closed_form``).  Their elementwise parts run over the
+    stack; each sum over N or K and each one-hot product is the element's
+    own call on an aligned input, as its looped run's is.  Elements in
+    ``rebuilt`` take that state; the others keep their carry."""
+    rebuilt = rebuilt or {}
+    idx = [b for b in sorted(doing) if b not in rebuilt]
+    rows = {b: (st.loads, st.c0, st.ct0) for b, st in rebuilt.items()}
+    if idx:
+        k = aggregate.shape[-1]
+        kidx = torch.arange(k, device=aggregate.device)
+        onehot = (assignment.long()[..., None] == kidx).to(aggregate.dtype)
+        degree = costs.row_sum(aggregate)[..., 0]               # (B, N)
+        internal = aggregate.gather(-1, assignment.long()[..., None])[..., 0]
+        loads, sq_loads, deg, own = [], [], [], []
+        for b in idx:
+            hot = _aligned(onehot[b])
+            loads.append(elements[b].node_weights @ hot)
+            sq_loads.append(sq_weights[b] @ hot)
+            deg.append(torch.sum(_aligned(degree[b])))
+            own.append(torch.sum(_aligned(internal[b])))
+        loads, sq_loads = torch.stack(loads), torch.stack(sq_loads)
+        cut = 0.5 * (torch.stack(deg) - torch.stack(own))
+        speeds = torch.stack([elements[b].speeds for b in idx])
+        mu = torch.stack([elements[b].mu for b in idx])
+        total = torch.stack([total_b[b] for b in idx])
+        c_terms = (loads * loads - sq_loads) / speeds
+        dev = loads / speeds - total[:, None]
+        ct_terms = dev * dev
+        c0 = torch.stack([torch.sum(_aligned(t)) for t in c_terms]) \
+            + mu * cut
+        ct0 = torch.stack([torch.sum(_aligned(t)) for t in ct_terms]) \
+            + 0.5 * mu * cut
+        rows.update((b, (loads[j], c0[j], ct0[j])) for j, b in enumerate(idx))
+
+    def field(i, old):
+        return torch.stack([rows[b][i] if b in rows else old[b]
+                            for b in range(len(elements))])
+
+    if rebuilt:
+        aggregate = torch.stack([rebuilt[b].aggregate if b in rebuilt
+                                 else aggregate[b]
+                                 for b in range(len(elements))])
+        assignment = torch.stack([rebuilt[b].assignment if b in rebuilt
+                                  else assignment[b]
+                                  for b in range(len(elements))])
+    return agg_mod.AggregateState(
+        assignment=assignment, loads=field(0, carry.loads),
+        aggregate=aggregate, c0=field(1, carry.c0), ct0=field(2, carry.ct0))
+
+
+def _apply_unbounded(problems, elements, sq_weights, carry, accept, best,
+                     n_acc, counts: list[int], doing: set, total_b):
+    """An unbounded sweep's updates: per element, as its looped run
+    chooses by its accepted count, the mover buffer or the O(E·K)
+    rebuild.  The buffers are one buffer of the largest count among the
+    buffered elements; a sparse fleet's windows go through one
+    ``add_windows`` (which reads its depth back), a dense element's
+    product takes its own count's slots (:func:`_products`)."""
+    bsz, n, k = carry.aggregate.shape
+    cap = min(refine_mod._UNBOUNDED_APPLY_CAP, n)
+    rebuilt = {b: agg_mod.rebuild_state(
+        elements[b], torch.where(accept[b], best[b], carry.assignment[b]),
+        total_b[b]) for b in doing if counts[b] > cap}
+    buffered = {b for b in doing if counts[b] <= cap}
+    aggregate, assignment = carry.aggregate, carry.assignment
+    size = max((counts[b] for b in buffered), default=0)
+    if size:
+        idx = _mover_buffer(accept, size)                      # (B, size)
+        slots = torch.arange(size, device=idx.device)
+        valid = (slots < n_acc[:, None]) & (n_acc <= cap)[:, None]
+        dests = best.gather(1, idx)
+        if costs.is_sparse(problems):
+            rows, contrib = _fleet_windows(problems, assignment, idx, dests,
+                                           valid)
+            aggregate = agg_mod.add_windows(
+                aggregate.reshape(bsz * n, k), rows,
+                contrib).reshape(bsz, n, k)
+        else:
+            aggregate = _products(elements, carry, {
+                b: (idx[b, :counts[b]], dests[b, :counts[b]],
+                    valid[b, :counts[b]]) for b in buffered})
+        assignment = _set_assignments(assignment, idx, dests, valid)
+    return _closed_forms(elements, sq_weights, carry, aggregate, assignment,
+                         total_b, buffered, rebuilt)
+
+
+# ---------------------------------------------------------------------------
+# the one loop of the recompute path
+# ---------------------------------------------------------------------------
+
+def _recompute_carry(elements, r0):
+    """The recompute path's fleet state (assignments and each element's
+    loads by the unbatched ``make_state``) and each element's weight
+    sum."""
+    state = stack_pytrees([make_state(p, r0[b])
+                           for b, p in enumerate(elements)])
+    total_b = torch.stack([torch.sum(p.node_weights) for p in elements])
+    return state, total_b
+
+
+def _aggregates(elements, assignment, previous, live: list[bool]):
+    """Every live element's (N, K) aggregate rebuilt from its adjacency or
+    edge list by its own product, as the unbatched recompute turn builds
+    it; the others keep ``previous`` (their turns are masked)."""
+    return torch.stack([
+        costs.problem_aggregate(p, assignment[b], p.num_machines)
+        if live[b] else previous[b] for b, p in enumerate(elements)])
+
+
+def _fleet_costs(problems, state, aggregate, framework: str, total_b):
+    """The (B, N, K) cost matrices of the recompute turn from each
+    element's recomputed aggregate (``costs.cost_matrix``'s assembly with
+    a batch axis)."""
+    return costs.cost_matrix_from_aggregate(
+        aggregate, state.assignment, problems.node_weights, state.loads,
+        problems.speeds, problems.mu, framework, total_weight=total_b)
+
+
+def _refine_recompute(problems, elements, r0, framework: str,
+                      max_turns: int, tol: float, theta) -> RefineResult:
+    """``refine_batched(incremental=False)``: the incremental path's loop
+    (``_SYNC_EVERY`` reads, masked turns) on the recompute turn.  An
+    element the host has seen converged keeps its last aggregate."""
+    bsz = r0.shape[0]
+    k = problems.speeds.shape[-1]
+    dev = r0.device
+    state, total_b = _recompute_carry(elements, r0)
+    aggregate = None
+    live = [True] * bsz
+    idle, turns, moves = (torch.zeros(bsz, dtype=torch.int32, device=dev)
+                          for _ in range(3))
+    for t in range(max_turns):
+        if t and t % _SYNC_EVERY == 0:
+            live = (idle < k).tolist()              # host sync
+            if not any(live):
+                break
+        active = idle < k
+        aggregate = _aggregates(elements, state.assignment, aggregate, live)
+        state, res, _ = _turn_from_cost(
+            problems, state, _fleet_costs(problems, state, aggregate,
+                                          framework, total_b),
+            t % k, tol, theta, active)
+        idle = torch.where(res.moved, 0, idle + 1)
+        turns = turns + active.to(torch.int32)
+        moves = moves + res.moved.to(torch.int32)
+    return RefineResult(assignment=state.assignment, loads=state.loads,
+                        num_moves=moves, num_turns=turns,
+                        converged=idle >= k,
+                        aggregate_drift=torch.zeros(bsz, device=dev))

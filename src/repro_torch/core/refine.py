@@ -214,20 +214,30 @@ def _turn(problem, state: PartitionState, machine: int, framework: str,
         cost = costs.cost_matrix(problem, state, framework)
     else:
         cost = cost_matrix_fn(problem, state, framework)
-    dissat, best = costs.dissatisfaction(problem, state, framework,
-                                         cost=cost, theta=theta)
+    return _turn_from_cost(problem, state, cost, machine, tol, theta, active)
+
+
+def _turn_from_cost(problem, state: PartitionState, cost, machine: int,
+                    tol: float, theta=None, active=True):
+    """The recompute turn's move from its (N, K) cost matrix.  A fleet
+    passes a stacked problem, a state and ``cost`` with a leading B axis
+    and a (B,) ``active``: every op is the unbatched one with a batch
+    axis."""
+    dissat, best = costs.dissatisfaction_from_cost(cost, state.assignment,
+                                                   theta)
     node, gain, do_move = _pick(dissat, state.assignment, machine, tol,
                                 active)
-    dest = best.index_select(0, node)
-    moved_to = torch.where(do_move, dest,
-                           state.assignment.index_select(0, node))
-    new_assignment = state.assignment.scatter(0, node, moved_to)
-    b_node = problem.node_weights.index_select(0, node)
-    kidx = torch.arange(problem.num_machines, device=problem.device)
+    dest = best.gather(-1, node)
+    moved_to = torch.where(do_move[..., None], dest,
+                           state.assignment.gather(-1, node))
+    new_assignment = state.assignment.scatter(-1, node, moved_to)
+    b_node = problem.node_weights.gather(-1, node)
+    kidx = torch.arange(cost.shape[-1], device=cost.device)
     delta = (kidx == dest).to(b_node.dtype) - (kidx == machine).to(
         b_node.dtype)
-    new_loads = state.loads + b_node * torch.where(do_move, delta, 0.0)
-    zero = torch.zeros((), device=problem.device)
+    new_loads = state.loads + b_node * torch.where(do_move[..., None],
+                                                   delta, 0.0)
+    zero = torch.zeros(do_move.shape, device=cost.device)
     res = _result(do_move, node, machine, dest, gain, zero, zero)
     return PartitionState(new_assignment, new_loads), res, dissat
 
@@ -667,7 +677,9 @@ def _refine_sweeps(problem, assignment, framework: str, max_sweeps: int,
     unbounded = sweep_fn is None and moves_per_machine is None
     agg = agg_mod.init_aggregate_state(problem, assignment)
     total_b = torch.sum(problem.node_weights)
-    moves = _zero_i32(dev)
+    # int64, the dtype of the per-sweep counts it sums, from the start: a
+    # run that converges at sweep 0 returns the dtype of one that moves
+    moves = torch.zeros((), dtype=torch.int64, device=dev)
     kidx = torch.arange(k, device=dev)
     c0s, ct0s, actives = [], [], []
     converged = False
@@ -756,12 +768,16 @@ def _refine_sweeps(problem, assignment, framework: str, max_sweeps: int,
 
 def _mover_buffer(accept: torch.Tensor, size: int) -> torch.Tensor:
     """The first ``size`` accepted node ids, lowest first, compacted by a
-    cumulative sum (no ``nonzero``, which syncs)."""
-    slot = torch.cumsum(accept.to(torch.int64), 0) - 1
+    cumulative sum (no ``nonzero``, which syncs).  A fleet's (B, N)
+    ``accept`` gives each element's (B, size); slots past an element's
+    count hold node 0."""
+    slot = torch.cumsum(accept.to(torch.int64), -1) - 1
     slot = torch.where(accept & (slot < size), slot, size)
-    buf = torch.zeros(size + 1, dtype=torch.int64, device=accept.device)
-    buf[slot] = torch.arange(accept.shape[0], device=accept.device)
-    return buf[:size]
+    buf = torch.zeros(accept.shape[:-1] + (size + 1,), dtype=torch.int64,
+                      device=accept.device)
+    buf.scatter_(-1, slot, torch.arange(accept.shape[-1],
+                                        device=accept.device).expand_as(slot))
+    return buf[..., :size]
 
 
 def count_discrepancies(trace: Trace, framework: str, initial_other,

@@ -502,7 +502,7 @@ def _refine_distributed_simultaneous(problem, assignment,
     fused = _fused(cost_fn, False) if incremental else False
     aggs = sh.aggregates(sh.r0) if incremental else None
     r, loads = sh.r0, sh.loads0
-    moves = _zero(dev)
+    moves = _zero(dev, torch.int64)      # refine_simultaneous's count dtype
     c0s, ct0s, per_sweep, converged = [], [], 0, False
     for _ in range(max_sweeps):
         r_local = sh.r_local(r)
@@ -860,7 +860,7 @@ def _refine_distributed_simultaneous_faulty(problem, assignment, fault_plan,
     fused = _fused(cost_fn, False)
     r, loads = sh.r0, sh.loads0
     aggs = sh.aggregates(r)
-    moves = _zero(dev)
+    moves = _zero(dev, torch.int64)      # refine_simultaneous's count dtype
     zero_f, zero_i = _zero(dev, torch.float32), _zero(dev)
     true = torch.ones((), dtype=torch.bool, device=dev)
     c0s, ct0s, frows, per_sweep, done = [], [], [], 0, False

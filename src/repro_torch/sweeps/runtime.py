@@ -52,7 +52,9 @@ class SweepSpec:
     convergence), ``"traced"`` (fixed length, per-turn move and potential
     traces), ``"simultaneous"`` (§4.5 sweep mode) or ``"multimove"`` (the
     probabilistic multi-move sweeps of DESIGN.md §17 —
-    :func:`repro_torch.core.batch.refine_sweeps_batched`).
+    :func:`repro_torch.core.batch.refine_sweeps_batched`).  Every mode
+    runs a group as one loop over its stack; the sweep modes read every
+    case's flag once a fleet sweep and stop at the group's longest case.
     ``use_kernel`` keeps the reference's signature but offers no choice:
     ``"refine"`` mode always reduces each turn on kernel 3 (its twin on
     CPU tensors) and so needs ``use_kernel=True``; the other modes, which

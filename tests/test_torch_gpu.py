@@ -1422,3 +1422,118 @@ def test_analysis_finds_nothing_new_on_the_card(card):
     new, _, stale = split_findings(findings, load_baseline())
     assert new == [], [f.id for f in new]
     assert stale == set()
+
+
+def _fleet_on(card, rep, num=4, k=4):
+    """A fleet on the card: dense elements from ``random_degree_graph(45,
+    seed=s)`` (45 rows: the stack's element rows start off the 16-byte
+    grid), sparse ones one ``random_degree_graph_edges(301, seed=0)`` with
+    per-element weights; speeds and starts from ``default_rng(40 + s)``."""
+    from repro_torch.core.problem import make_problem
+    from repro_torch.core.sparse import make_sparse_problem
+    from repro_torch.graphs.generators import (random_degree_graph,
+                                               random_degree_graph_edges,
+                                               random_weights,
+                                               random_weights_edges)
+    n = 45 if rep == "dense" else 301
+    if rep == "sparse":
+        snd, rcv = random_degree_graph_edges(n, seed=0)
+    problems, r0s = [], []
+    for s in range(num):
+        rng = np.random.default_rng(40 + s)
+        speeds = rng.uniform(0.5, 2.0, k)
+        if rep == "dense":
+            b, c = random_weights(random_degree_graph(n, seed=s), seed=s + 7,
+                                  mean=5.0)
+            problems.append(make_problem(c, b, speeds, mu=8.0, device=card))
+        else:
+            b, w = random_weights_edges(n, snd, seed=s + 7, mean=5.0)
+            problems.append(make_sparse_problem(snd, rcv, w, b, speeds,
+                                                mu=8.0, device=card))
+        r0s.append(torch.as_tensor(rng.integers(0, k, n).astype(np.int32),
+                                   device=card))
+    return problems, r0s
+
+
+def _same_element(batch, lone, fleet, b, label):
+    """Every tensor of ``lone`` equals element b of ``fleet``, bitwise,
+    dtype included."""
+    got = batch._tensors(batch.unstack_pytree(fleet, b))
+    want = batch._tensors(lone)
+    assert len(got) == len(want), label
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.dtype == w.dtype, (label, b, i)
+        assert torch.equal(g, w), (label, b, i)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("framework", ["c", "ct"])
+@pytest.mark.parametrize("rep", ["dense", "sparse"])
+def test_fleet_one_loop_bitwise_lone_runs_on_the_card(card, rep, framework,
+                                                      monkeypatch):
+    """The batched sweep modes and the recompute path, each one loop over
+    the stack, equal every element's lone run bitwise on the card: the §4.5
+    mode, top-2 and unbounded sweeps with coins (each generator ending in
+    its lone run's state), unbounded sweeps with the mover buffer's cap
+    lowered to 8 (rebuilds beside buffers), recompute turns, and the
+    incremental turns (kernel 3 against each lone run's kernel 1) whose
+    per-element set-up reads the same slices; element 0 starts at an
+    equilibrium of ``refine``, ct runs with a per-node θ."""
+    from repro_torch.core import batch
+    from repro_torch.core import refine as R
+    problems, r0s = _fleet_on(card, rep)
+    r0s[0] = R.refine(problems[0], r0s[0], framework).assignment
+    stacked, r0 = batch.stack_problems(problems), torch.stack(r0s)
+    theta = None
+    if framework == "ct":
+        theta = torch.as_tensor(np.random.default_rng(9).uniform(
+            0, 3, tuple(r0.shape)).astype(np.float32), device=card)
+
+    def th(b):
+        return None if theta is None else theta[b]
+
+    def gens():
+        return [torch.Generator(device=card).manual_seed(3 + b)
+                for b in range(len(problems))]
+
+    coins = dict(move_prob=0.5, epsilon=1e-3)
+    for kw in (None, dict(moves_per_machine=2, **coins),
+               dict(moves_per_machine=None, **coins), "cap"):
+        if kw == "cap":
+            monkeypatch.setattr(R, "_UNBOUNDED_APPLY_CAP", 8)
+            kw = dict(moves_per_machine=None)
+        g = gens() if kw and "move_prob" in kw else None
+        if kw is None:
+            fleet = batch.refine_simultaneous_batched(
+                stacked, r0, framework, max_sweeps=64, theta=theta)
+        else:
+            fleet = batch.refine_sweeps_batched(
+                stacked, r0, framework, max_sweeps=64, theta=theta,
+                generators=g, **kw)
+        for b, (p, start) in enumerate(zip(problems, r0s)):
+            lone_g = None if g is None else gens()[b]
+            if kw is None:
+                lone = R.refine_simultaneous(p, start, framework,
+                                             max_sweeps=64, theta=th(b))
+            else:
+                lone = R.refine_sweeps(p, start, framework, max_sweeps=64,
+                                       theta=th(b), generator=lone_g, **kw)
+            _same_element(batch, lone, fleet, b, f"{rep} {kw}")
+            if g is not None:
+                assert torch.equal(g[b].get_state(), lone_g.get_state())
+    monkeypatch.undo()
+    for incremental in (False, True):
+        res = batch.refine_batched(stacked, r0, framework, max_turns=400,
+                                   incremental=incremental, theta=theta)
+        trace = batch.refine_traced_batched(stacked, r0, framework,
+                                            max_turns=40,
+                                            incremental=incremental,
+                                            theta=theta)
+        for b, (p, start) in enumerate(zip(problems, r0s)):
+            label = f"{rep} incremental={incremental}"
+            _same_element(batch, R.refine(p, start, framework, max_turns=400,
+                                          incremental=incremental,
+                                          theta=th(b)), res, b, label)
+            _same_element(batch, R.refine_traced(
+                p, start, framework, max_turns=40, incremental=incremental,
+                theta=th(b)), trace, b, f"{label} traced")
