@@ -6,7 +6,7 @@ million-node instance (N=10^6, E=9,002,624, K=8), the batched fleets
 dense LM serving path (qwen1.5-4b at full width, 32 requests through the
 continuous-batching engine), the SSM serving path (mamba2-1.3b at full
 width, the same traffic) and the paper's Time-Warp DES with periodic
-refinement (N=2048, K=16; a fleet of 8 at N=1024), the distributed
+refinement (N=2048, K=16; a fleet of 4 at N=1024), the distributed
 refinement runtime with its faults (16 shards of the dense instance),
 run telemetry on those paths, the MoE and hybrid serving paths
 (granite-moe-1b-a400m and zamba2-7b at full width, the same traffic), and
@@ -155,11 +155,11 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      every ``DESState`` field bitwise equal; 256 ticks replayed from CUDA
      graphs against eager ticks, bitwise; a profiled window of 64 ticks
      and one tick's device launches;
- 21. the DES fleet and the remaining core — ``run_simulation_batch`` over 8
-     scenarios at N=1024 (graphs, workloads and churn from seeds 0-7),
+ 21. the DES fleet and the remaining core — ``run_simulation_batch`` over 4
+     scenarios at N=1024 (graphs, workloads and churn from seeds 0-3),
      refining through kernel 3, the whole run bitwise kernel 3's twin path,
-     elements 0 and 7 bitwise their lone runs on kernel 1 (all eight
-     take ~90 s); then on a dense N=4096, K=16 problem: ``refine``,
+     elements 0 and 3 bitwise their lone runs on kernel 1 (all of them
+     take ~45 s each); then on a dense N=4096, K=16 problem: ``refine``,
      ``simulated_annealing`` (2048 steps), ``equalize_cardinality`` and
      ``count_discrepancies`` over 512 traced ct turns, each checked and
      timed;
@@ -239,10 +239,10 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      ``expert_placement`` on the CPU from the same statistics, layer 0's
      MoE block at f32 unchanged across it within 2e-4; ms a step, trained
      tokens/s, peak memory; (d) kernel 7 launched 2 x 24 times every step
-     (remat), no twin; (e) checkpoints at steps 3 and 6, the latter taken
-     away, a fresh ``train`` on the directory resumes at 3 and ends on the
-     uninterrupted state bitwise (params, Adam moments, statistics), with
-     two of its steps profiled for the device's busy share;
+     (remat), no twin; (e) one checkpoint, at step 4, from which a fresh
+     ``train`` on the directory resumes and ends on the uninterrupted
+     state bitwise (params, Adam moments, statistics), its two steps
+     profiled for the device's busy share;
  27. full-width SSM training — mamba2-1.3b the same way without the
      planner: kernel 8 at (8, 1024, 64, 64, 128) bf16 against its twin,
      (b), kernel 8 launched 2 x 48 times every step, (e).
@@ -275,6 +275,13 @@ Phases (any failure exits non-zero; there is no CPU fallback):
      kernels 1, 3 and 4, on the entry points' card routes, more than 0.
 
 Each path's launch counts are set to 0 just before it and read just after.
+The sharding hints' redistribution counts
+(``repro_torch.sharding.hints.redistributions``) are set to 0 before phase
+14 and must read 0 after every serving, training and example phase: no
+mesh is active on the card, so every hint and relayout in the model code
+returns its input.  Before the kernels' record, one line gives the ms a
+decode step of phases 14, 18, 24 and 25 beside an earlier run's, with the
+card's name and power limit.
 The line before the last two is the kernels' JSON record; then the card's
 name and power limit; the last line is ``{"ok": true, "device": ...}``.
 """
@@ -427,7 +434,7 @@ DES_CHURN = (32, 1024)      # random_churn: segments, ticks a segment
 DES_PARITY_ROUNDS = 2       # refinement rounds held kernel vs twin path
 DES_EAGER_TICKS = 256       # ticks held graph-replayed vs eager
 DES_PROFILE_TICKS = 64
-DES_FLEET_B = 8
+DES_FLEET_B = 4              # cut for the script's time limit
 DES_FLEET_N = 1024
 DES_FLEET_THREADS = 24
 DES_FLEET_REFINE_FREQ = 512
@@ -464,6 +471,12 @@ HYBRID_ARCH = "zamba2-7b"
 MOE_TOL = 1e-4
 MOE_TIMED_ITERS = 10
 
+# ms a decode step of phases 14, 18, 24 and 25 (32 requests) in an earlier
+# run of this script on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md section
+# 5), printed beside this run's
+EARLIER_DECODE_MS = {"qwen1.5-4b": 60.846, "mamba2-1.3b": 48.807,
+                     "granite-moe-1b-a400m": 85.699, "zamba2-7b": 113.776}
+
 # phases 26-27: training at full width (launch.train.train), the
 # expert planner on granite's router statistics
 # (6 steps: the script's time limit)
@@ -472,7 +485,7 @@ TRAIN_BATCH = 8
 TRAIN_SEQ = 1024
 TRAIN_REPLAN = 2            # replans at steps 2, 4 and 6
 TRAIN_GROUPS = 4            # expert groups the planner balances over
-TRAIN_CKPT_EVERY = 3        # (e): checkpoints at 3 and 6, resumed from 3
+TRAIN_CKPT_EVERY = 4        # (e): one checkpoint, at 4, resumed from it
 TRAIN_PARITY_LAYERS = 2     # (b): f32, full width, kernel vs plain autograd
 TRAIN_GRAD_TOL = 1e-4       # (b): max |g_k - g_p| / max |g_p| over leaves
 PLANNER_MOE_TOL = 2e-4      # (c): the reference's budget, test_planner.py
@@ -523,6 +536,20 @@ def _timed(fn) -> float:
     t0 = time.perf_counter()
     fn()
     return time.perf_counter() - t0
+
+
+def check_redistributions(phase: str) -> None:
+    """Fail unless no sharding hint or relayout has redistributed a
+    tensor since the counts were set to 0 before phase 14."""
+    from repro_torch.sharding import hints
+    if any(hints.redistributions.values()):
+        fail(f"{phase}: sharding redistributions on the card: "
+             f"{hints.redistributions}")
+    log(f"  {phase}: sharding redistributions {hints.redistributions}")
+
+
+def decode_ms(stats: dict) -> float:
+    return 1e3 * stats["decode_s"] / stats["decode_steps"]
 
 
 def cuda_ms(fn, iters: int, warmup: int = 5) -> float:
@@ -4066,7 +4093,6 @@ def _steady(probe_steps, start: int):
 def phase_train(arch: str, F, S8, D, card, planner: bool):
     """Phases 26-27: ``arch`` trained at its published widths through
     ``repro_torch.launch.train.train`` (a)-(e); see the docstring."""
-    import os
     import shutil
     import tempfile
 
@@ -4148,10 +4174,9 @@ def phase_train(arch: str, F, S8, D, card, planner: bool):
             f"{want['ssd_scan']} launches (remat: each layer's forward runs "
             f"again in the backward), no twin; the run: {launches}")
 
-        # (e): the step-6 checkpoint taken away, a fresh train() resumes
-        # from step 3 and must end on the uninterrupted state bitwise
-        # (the replans at steps 4 and 6 included)
-        shutil.rmtree(os.path.join(ckpt, f"step_{TRAIN_STEPS:08d}"))
+        # (e): a fresh train() resumes from the step-4 checkpoint and must
+        # end on the uninterrupted state bitwise (the replan at step 6
+        # included)
         for mod in mods:
             mod.reset_launches()
         t0 = time.perf_counter()
@@ -4606,13 +4631,17 @@ def main() -> int:
 
     from repro_torch.kernels import decode_attention as A
     from repro_torch.kernels import flash_attention as F
+    from repro_torch.sharding import hints
+    hints.reset_redistributions()
     log("== phase 13: attention kernels 6-7 vs plain twins on the card")
     err6, err7 = phase_attention_kernels(A, F)
     log(f"== phase 14: {LM_ARCH} at full width through ServingEngine "
         f"(kernels 6-7)")
     params, engine, serving = phase_serving(A, F, card)
+    check_redistributions("phase 14")
     log("== phase 15: kernel path vs plain path at full width")
     phase_paths(params, engine)
+    check_redistributions("phase 15")
     log("== phase 16: attention times (CUDA events, serving shapes)")
     attn = phase_attention_times(A, F, engine, card)
     for rec, err in zip(attn, (err6, err7)):
@@ -4628,9 +4657,11 @@ def main() -> int:
     log(f"== phase 18: {SSM_ARCH} at full width through ServingEngine "
         f"(kernel 8)")
     params, engine, ssm_serving = phase_ssm_serving(S8, card)
+    check_redistributions("phase 18")
     log("== phase 19: SSM kernel path vs plain path at full width; kernel "
         "8's times (CUDA events, serving shape)")
     rec8 = phase_ssm_paths(S8, params, engine, card)
+    check_redistributions("phase 19")
     rec8["launches"] = ssm_serving["launches"]["ssd_scan"]
     rec8["max_abs_err"] = err8
     kernels.append(rec8)
@@ -4672,12 +4703,14 @@ def main() -> int:
         f"(kernels 6-7), its MoE block, kernel vs plain path")
     t0 = time.perf_counter()
     moe_run = phase_moe(A, F, S8, card)
+    check_redistributions("phase 24")
     log(f"  phase 24: {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     log(f"== phase 25: {HYBRID_ARCH} at full width through ServingEngine "
         f"(kernels 6-8), kernel 8 at its shape, kernel vs plain path")
     t0 = time.perf_counter()
     hybrid_run = phase_hybrid(A, F, S8, card)
+    check_redistributions("phase 25")
     log(f"  phase 25: {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     for rec in kernels:
@@ -4689,11 +4722,13 @@ def main() -> int:
         f"kernel 7 forward, the expert planner on kernel 1)")
     t0 = time.perf_counter()
     train_moe = phase_train(MOE_ARCH, F, S8, D, card, planner=True)
+    check_redistributions("phase 26")
     log(f"  phase 26: {time.perf_counter() - t0:.1f} s")
     log(f"== phase 27: {SSM_ARCH} training at full width (launch.train: "
         f"kernel 8 forward)")
     t0 = time.perf_counter()
     train_ssm = phase_train(SSM_ARCH, F, S8, D, card, planner=False)
+    check_redistributions("phase 27")
     log(f"  phase 27: {time.perf_counter() - t0:.1f} s")
     for rec in kernels:
         name = rec["name"]
@@ -4708,6 +4743,7 @@ def main() -> int:
         "train_lm --demo-restart, temperature sampling at full width)")
     t0 = time.perf_counter()
     examples = phase_examples(A, F, D, card)
+    check_redistributions("phase 28")
     log(f"  phase 28: {time.perf_counter() - t0:.1f} s")
     for rec in kernels:
         name = rec["name"]
@@ -4720,10 +4756,18 @@ def main() -> int:
         "full grid)")
     t0 = time.perf_counter()
     lint = phase_analysis(card)
+    check_redistributions("phase 29")
     log(f"  phase 29: {time.perf_counter() - t0:.1f} s")
     for rec in kernels:
         rec["analysis_launches"] = lint["launches"][rec["name"]]
     log(f"  total {time.perf_counter() - t_start:.1f} s")
+    decode = {LM_ARCH: decode_ms(serving["stats"]),
+              SSM_ARCH: decode_ms(ssm_serving["stats"]),
+              MOE_ARCH: decode_ms(moe_run["stats"]),
+              HYBRID_ARCH: decode_ms(hybrid_run["stats"])}
+    print("decode ms a step (this run / earlier run): " + ", ".join(
+        f"{arch} {ms:.3f} / {EARLIER_DECODE_MS[arch]:.3f}"
+        for arch, ms in decode.items()) + f" [{card}]", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -21,8 +21,12 @@ cell it proves, without hardware:
       analytic floor of ``launch.traffic`` over HBM3, and collectives from
       ``launch.collectives`` over a run of the cell's function on DTensors
       (plain tensors the model creates join as replicated, under
-      ``implicit_replication``) over NVLink.  Where that run raises, or
-      passes ``COLLECTIVE_BUDGET_S``, the cell records
+      ``implicit_replication``) over NVLink.  The run is inside
+      ``sharding.hints.use_mesh``: the model's hints place its activations
+      as the reference's do (``--mode baseline`` sets REPRO_NO_HINTS=1 and
+      turns them off), and its cache writes, decode attention, SSD scans
+      and microbatch splits take their mesh branches.  Where that run
+      raises, or passes ``COLLECTIVE_BUDGET_S``, the cell records
       ``collective_bytes_per_chip: null`` and the op it reached.
 
 The bandwidths and peak are NVIDIA H100 datasheet figures
@@ -38,6 +42,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -55,7 +60,7 @@ from repro_torch.launch.flops import FlopCounter
 from repro_torch.launch.mesh import (HBM_BANDWIDTH, NVLINK_BANDWIDTH,
                                      PEAK_FLOPS_BF16, make_production_mesh)
 from repro_torch.models import decode_step, init_cache, init_params, prefill
-from repro_torch.sharding import rules
+from repro_torch.sharding import hints, rules
 from repro_torch.training.train_step import (TrainHyper, init_train_state,
                                              make_train_step)
 
@@ -171,12 +176,20 @@ def local_bytes(tree) -> int:
                if isinstance(leaf, torch.Tensor))
 
 
-def _collectives(cell: Cell, dist_args) -> tuple[dict | None, str | None]:
-    """The collectives of a DTensor run of the cell, or (None, reason)."""
+def _collectives(cell: Cell, dist_args,
+                 mesh) -> tuple[dict | None, str | None]:
+    """The collectives of a DTensor run of the cell, or (None, reason).
+    The run is inside ``hints.use_mesh``, so the model's hints act (unless
+    REPRO_NO_HINTS=1) and its cache writes and batch splits take their
+    mesh branches.  On a mesh of three axes DTensor's strategy costs price
+    strided shards as plain ones (``collectives.strided_costs_as_shards``):
+    its exact pricing takes minutes an op there."""
     from torch.distributed.tensor.experimental import implicit_replication
     counter = collectives.CollectiveCounter(COLLECTIVE_BUDGET_S)
+    costs = collectives.strided_costs_as_shards() if mesh.ndim >= 3 \
+        else contextlib.nullcontext()
     try:
-        with implicit_replication(), counter:
+        with implicit_replication(), hints.use_mesh(mesh), costs, counter:
             cell.fn(*dist_args)
     except Exception as e:      # the op the DTensor run stopped at
         op = getattr(counter.last_op, "__name__", str(counter.last_op))
@@ -228,7 +241,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, mesh=None, *,
     flops_chip = flops / chips
 
     t0 = time.time()                                                 # (e)
-    coll, coll_reason = _collectives(cell, dist_args)
+    coll, coll_reason = _collectives(cell, dist_args, mesh)
     t_coll = time.time() - t0
 
     compute_s = flops_chip / PEAK_FLOPS_BF16

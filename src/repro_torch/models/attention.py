@@ -12,8 +12,16 @@ reference's formula (:func:`_causal_core_plain`) with plain PyTorch
 operations: no backward kernel, no twin.  The kernels keep
 the probabilities in f32 where the reference rounds them to the compute
 dtype before P·V, so the two agree to float rounding at f32 compute and
-to bf16 rounding at bf16.  The reference's sharding hints are dropped
-(no-ops on one device).
+to bf16 rounding at bf16.
+
+The reference's sharding hints (``sharding.hints.hint``) stand at their
+sites: the sequence-parallel layout of q, k and v in
+:func:`_causal_core` and of its output, and, moved before the
+(heads, head_dim) split, on the flat projections in :func:`_project_qkv`
+(see there).  With no mesh active they return their input, so a path on
+one card runs the ops it ran before.  Under a mesh (the dry run) the
+decode step writes the cache row out of place (see
+:func:`decode_attention_step`).
 """
 from __future__ import annotations
 
@@ -27,6 +35,7 @@ from ..core.problem import resolve_device
 from ..kernels import ops
 from ..kernels.decode_attention import decode_attention_twin
 from ..kernels.flash_attention import flash_attention_twin
+from ..sharding.hints import DP, hint, on_mesh, relayout
 from .config import ModelConfig
 from .layers import apply_rope, normal_init
 
@@ -68,6 +77,16 @@ def init_attention(generator: torch.Generator, cfg: ModelConfig,
 
 def _project_qkv(params: dict, cfg: ModelConfig, x: torch.Tensor,
                  positions: torch.Tensor):
+    """q (B, S, H, D) and k, v (B, S, Hkv, D) of ``x`` at ``positions``.
+
+    Moved hints: the reference hints q's sequence over 'model' and k, v
+    replicated over it after the (heads, head_dim) split, in
+    ``_causal_core``; DTensor cannot split a feature dim sharded over
+    heads that do not divide the axis (yi-34b: 56 heads on 16), so the
+    same dims are hinted here on the flat projections, before the split,
+    which then yields the reference's layout.  A decode step's sequence
+    of one does not divide the axis, so there q replicates its features
+    as k and v do."""
     b, s, _ = x.shape
     h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     dtype = x.dtype
@@ -78,6 +97,9 @@ def _project_qkv(params: dict, cfg: ModelConfig, x: torch.Tensor,
         q = q + params["bq"].to(dtype)
         k = k + params["bk"].to(dtype)
         v = v + params["bv"].to(dtype)
+    q = hint(q, DP, "model", None)
+    k = hint(k, DP, None, None)
+    v = hint(v, DP, None, None)
     q = apply_rope(q.reshape(b, s, h, hd), positions, cfg.rope_theta)
     k = apply_rope(k.reshape(b, s, hkv, hd), positions, cfg.rope_theta)
     return q, k, v.reshape(b, s, hkv, hd)
@@ -125,16 +147,38 @@ def _causal_core(q, k, v, cfg: ModelConfig, q_chunks: int | None = None,
     """Causal softmax attention.  q: (B,S,H,D), k/v: (B,S,Hkv,D) ->
     (B,S,H,D), on kernel 7.  ``q_chunks`` (the reference's XLA-level
     blocking) is accepted and has no effect: the kernel never builds the
-    S x S logits."""
+    S x S logits, so the reference's hint on its query blocks has no site
+    here.
+
+    The reference's sequence-parallel hints: q's sequence over 'model',
+    k and v replicated over it, and the output's sequence over 'model'
+    (the reference hints it on its (B, S, Hkv, G, D) form; the kernel
+    returns (B, S, H, D)).  The reference also hints the logits' query
+    dim over 'model'; the port's logits exist only inside the kernel and
+    its twin, where q's layout already puts them there."""
     del cfg, q_chunks
     _check_path(attention)
+    q = hint(q, DP, "model", None, None)
+    k = hint(k, DP, None, None, None)
+    v = hint(v, DP, None, None, None)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     if attention == "plain":
-        return flash_attention_twin(q, k, v)
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
-        return _FlashAttention.apply(q, k, v)
-    return ops.flash_attention(q, k, v)
+        out = flash_attention_twin(q, k, v)
+    elif torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                      or v.requires_grad):
+        out = _FlashAttention.apply(q, k, v)
+    else:
+        out = ops.flash_attention(q, k, v)
+    return hint(out, DP, "model", None, None)
+
+
+def _project_out(params: dict, out: torch.Tensor, dtype) -> torch.Tensor:
+    """The core's (B, S, H, D) output through ``wo``.  Under a mesh its
+    sequence is gathered first, as ``transformer._norm`` gathers a
+    matmul's input."""
+    b, s = out.shape[0], out.shape[1]
+    return relayout(out.reshape(b, s, -1), DP, None, None) \
+        @ params["wo"].to(dtype)
 
 
 def causal_attention(params: dict, cfg: ModelConfig, x: torch.Tensor,
@@ -143,8 +187,27 @@ def causal_attention(params: dict, cfg: ModelConfig, x: torch.Tensor,
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None, :]
     q, k, v = _project_qkv(params, cfg, x, positions)
-    out = _causal_core(q, k, v, cfg, attention=attention).reshape(b, s, -1)
-    return out @ params["wo"].to(x.dtype)
+    out = _causal_core(q, k, v, cfg, attention=attention)
+    return _project_out(params, out, x.dtype)
+
+
+def _per_head_shard(fn, k):
+    """``fn`` (decode attention on q, k, v, length) run on each rank's
+    own heads where the cache ``k`` (a DTensor) shards its heads, else
+    ``fn``.  Decode attention is independent per head, so each shard's
+    heads attend locally, as the reference's partitioned decode does;
+    DTensor's own propagation would gather the cache to merge the
+    (batch, heads) dims of its batched product."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    kv = tuple(k.placements)
+    if Shard(2) not in kv:
+        return fn
+    q = tuple(Shard(1) if p == Shard(2) else p for p in kv)
+    rows = tuple(p if p == Shard(0) else Replicate() for p in kv)
+    return local_map(fn, out_placements=list(q),
+                     in_placements=(list(q), list(kv), list(kv), list(rows)),
+                     device_mesh=k.device_mesh, redistribute_inputs=True)
 
 
 def decode_attention_step(params: dict, cfg: ModelConfig, x: torch.Tensor,
@@ -154,7 +217,12 @@ def decode_attention_step(params: dict, cfg: ModelConfig, x: torch.Tensor,
     ``cache.k``/``cache.v`` IN PLACE, at row ``min(length, S - 1)``: XLA's
     ``dynamic_update_slice`` clamps the reference's write the same way, so
     a slot whose position ran past the cache overwrites its last row and
-    attends over all S rows."""
+    attends over all S rows.  Under a mesh, on a DTensor cache, the row is
+    written out of place (a ``torch.where`` on the row's position that
+    each shard applies to its own rows, as the reference's update slice
+    is partitioned) and the returned cache holds the new tensors; on a
+    cache sharded over heads the attention runs on each shard's heads
+    (:func:`_per_head_shard`)."""
     _check_path(attention)
     b = x.shape[0]
     h, hd = cfg.num_heads, cfg.head_dim
@@ -162,19 +230,28 @@ def decode_attention_step(params: dict, cfg: ModelConfig, x: torch.Tensor,
     length = torch.broadcast_to(cache.length, (b,))
     q, k_new, v_new = _project_qkv(params, cfg, x, length[:, None])
 
-    rows = torch.arange(b, device=x.device)
     idx = torch.clamp(length, max=s - 1).long()
-    cache.k[rows, idx] = k_new[:, 0].to(cache.k.dtype)
-    cache.v[rows, idx] = v_new[:, 0].to(cache.v.dtype)
+    if on_mesh(cache.k):
+        at = (torch.arange(s, device=x.device)[None, :]
+              == idx[:, None])[:, :, None, None]
+        k_all = torch.where(at, k_new.to(cache.k.dtype), cache.k)
+        v_all = torch.where(at, v_new.to(cache.v.dtype), cache.v)
+    else:
+        rows = torch.arange(b, device=x.device)
+        cache.k[rows, idx] = k_new[:, 0].to(cache.k.dtype)
+        cache.v[rows, idx] = v_new[:, 0].to(cache.v.dtype)
+        k_all, v_all = cache.k, cache.v
     new_len = cache.length + 1
 
     fn = ops.decode_attention if attention == "kernel" \
         else decode_attention_twin
-    out = fn(q.reshape(b, h, hd).to(cache.k.dtype), cache.k, cache.v,
+    if on_mesh(k_all):
+        fn = _per_head_shard(fn, k_all)
+    out = fn(q.reshape(b, h, hd).to(k_all.dtype), k_all, v_all,
              torch.broadcast_to(new_len, (b,)).to(torch.int32).contiguous())
     out = out.to(x.dtype).reshape(b, 1, h * hd)
     out = out @ params["wo"].to(x.dtype)
-    return out, KVCache(k=cache.k, v=cache.v, length=new_len)
+    return out, KVCache(k=k_all, v=v_all, length=new_len)
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,

@@ -21,7 +21,10 @@ stable descending sort.  The scatter writes each kept (group, expert,
 place) exactly once and sends the dropped pairs to a spare place past the
 capacity that nothing reads, so no float accumulation (``index_add_``,
 ``index_put_(accumulate=True)``, atomics) runs and no host sync is needed.
-The reference's sharding hints are dropped (no-ops on one device).
+The ``einsum`` path hints its tensors at the reference's five sites
+(``sharding.hints.hint``: groups over the data axes, experts over
+'model'); with no mesh active a hint returns its input, so a path on one
+card runs the ops it ran before.
 
 The router's statistics (``MoEStats``: auxiliary loss, per-expert load,
 expert co-activation counts) are what an expert placement planner reads.
@@ -33,6 +36,8 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from ..sharding.hints import (DP, fitted_spec, hint, mesh_axis_sizes,
+                              on_mesh, relayout)
 from .config import ModelConfig
 from .layers import normal_init
 
@@ -136,6 +141,22 @@ def _experts(params: dict, buf: torch.Tensor, dtype) -> torch.Tensor:
                         params["down"].to(dtype))
 
 
+def _token_rows(t: torch.Tensor, b: int) -> torch.Tensor:
+    """Under a mesh, the (B * S, d) tokens ``t`` sharded over the data
+    axes only where the batch ``b`` divides them, else replicated: DTensor
+    cannot unflatten a dim whose shards do not fall on batch boundaries,
+    nor take the gradient of a flatten whose shards do not."""
+    if not on_mesh(t):
+        return t
+    return relayout(t, fitted_spec(mesh_axis_sizes(), (b,), (DP,))[0])
+
+
+def _unflatten_tokens(y: torch.Tensor, b: int, s: int) -> torch.Tensor:
+    """The first ``b * s`` rows of ``y`` (G * sg, d) as (B, S, d)."""
+    y = _token_rows(y.reshape(-1, y.shape[-1])[:b * s], b)
+    return y.reshape(b, s, y.shape[-1])
+
+
 def moe_block(params: dict, cfg: ModelConfig, x: torch.Tensor, *,
               dropless: bool = False):
     """x: (B, S, d) -> (B, S, d), MoEStats.
@@ -149,7 +170,7 @@ def moe_block(params: dict, cfg: ModelConfig, x: torch.Tensor, *,
     b, s, d = x.shape
     dtype = x.dtype
     t = b * s
-    x_flat = x.reshape(t, d)
+    x_flat = _token_rows(x.reshape(t, d), b)
     weights, ids, stats = _route(params, cfg, x_flat)
     e, k = cfg.num_experts, cfg.top_k
 
@@ -184,10 +205,15 @@ def moe_block(params: dict, cfg: ModelConfig, x: torch.Tensor, *,
         dispatch = torch.sum(disp, dim=2)                       # (G,sg,E,C)
         combine = torch.sum(disp * wg.reshape(groups, sg, k, 1, 1).to(dtype),
                             dim=2)
+        xg = hint(xg, DP, None, None)
+        dispatch = hint(dispatch, DP, None, "model", None)
         buf = torch.einsum("gsec,gsd->gecd", dispatch, xg)
+        buf = hint(buf, DP, "model", None, None)
         out_buf = _experts(params, buf, dtype)                  # (G,E,C,d)
+        out_buf = hint(out_buf, DP, "model", None, None)
         y = torch.einsum("gsec,gecd->gsd", combine, out_buf)
-        return y.reshape(groups * sg, d)[:t].reshape(b, s, d), stats
+        y = hint(y, DP, None, None)
+        return _unflatten_tokens(y, b, s), stats
 
     # place ``cap`` is the spare that takes every dropped pair: the kept
     # places are written once each and the experts never read the spare
@@ -200,4 +226,4 @@ def moe_block(params: dict, cfg: ModelConfig, x: torch.Tensor, *,
     gathered = out_buf[g_idx, plan.expert, safe]               # (G,sg*k,d)
     contrib = gathered * (wg * plan.keep)[..., None].to(dtype)
     y = torch.sum(contrib.reshape(groups, sg, k, d), dim=2)
-    return y.reshape(groups * sg, d)[:t].reshape(b, s, d), stats
+    return _unflatten_tokens(y, b, s), stats

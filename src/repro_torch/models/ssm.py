@@ -31,6 +31,7 @@ import torch.nn.functional as F
 from ..core.problem import resolve_device
 from ..kernels import ops
 from ..kernels.ssd_scan import ssd_scan_twin
+from ..sharding.hints import DP, fitted_spec, mesh_axis_sizes, on_mesh
 from .config import ModelConfig
 from .layers import causal_conv1d, normal_init, rms_norm
 
@@ -185,9 +186,46 @@ class _SSDScan(torch.autograd.Function):
         return x, dt, a, bm, cm, None, init_state
 
 
+def _per_shard(fn, xh, init_state):
+    """``fn`` (the scan on x, dt, a, bm, cm, cfg, init_state) run on each
+    rank's own rows and heads: batch over the data axes and heads over
+    'model' where they divide them.  The scan is independent across both,
+    as the reference's partitioned scan is; run on DTensors, its chunked
+    formulation dispatches thousands of ops a layer."""
+    from torch.distributed.tensor.experimental import local_map
+
+    from ..sharding.rules import to_placements
+    mesh = xh.device_mesh
+    sizes = mesh_axis_sizes()
+    b, seq, h, p = xh.shape
+
+    def placed(shape, dims):
+        return list(to_placements(fitted_spec(sizes, shape, dims), mesh))
+
+    x = placed(xh.shape, (DP, None, "model", None))
+    state = placed((b, h, p, 1), (DP, "model", None, None))
+    return local_map(
+        fn, out_placements=(x, state),
+        in_placements=(x, placed((b, seq, h), (DP, None, "model")),
+                       placed((h,), ("model",)),
+                       placed((b, seq, 1), (DP, None, None)),
+                       placed((b, seq, 1), (DP, None, None)), None,
+                       None if init_state is None else state),
+        device_mesh=mesh, redistribute_inputs=True)
+
+
 def _scan(xh, dt, a, bm, cm, cfg: ModelConfig, init_state, ssm: str):
     """The SSD scan of ``ssm_block`` on kernel 8 (differentiable when an
-    input requires a gradient), or its twin for ``ssm="plain"``."""
+    input requires a gradient), or its twin for ``ssm="plain"``.  Under a
+    mesh, on DTensors, the scan runs on each rank's shard
+    (:func:`_per_shard`)."""
+    if on_mesh(xh):
+        return _per_shard(lambda *args: _scan_local(*args, ssm), xh,
+                          init_state)(xh, dt, a, bm, cm, cfg, init_state)
+    return _scan_local(xh, dt, a, bm, cm, cfg, init_state, ssm)
+
+
+def _scan_local(xh, dt, a, bm, cm, cfg: ModelConfig, init_state, ssm: str):
     args = (xh, dt.contiguous(), a, bm.contiguous(), cm.contiguous())
     if ssm == "plain":
         return ssd_scan_twin(*args, cfg.ssm_chunk, init_state)

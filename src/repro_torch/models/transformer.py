@@ -31,6 +31,19 @@ capacity in ``forward_logits`` and ``prefill`` and is dropless in
 ``decode_step``, as the reference.  ``decode_step`` writes the new keys
 and values, SSM states and conv windows into the cache in place.
 
+The residual stream is hinted sequence-parallel (``sharding.hints.hint``)
+at the top of each layer of ``backbone``, where the reference's scanned
+block hints it, and of ``prefill``'s loops; under a mesh each layer's
+normed input is gathered over its sequence for its matmuls (``_norm``).
+Under a mesh (the dry run, a DTensor activation) ``prefill`` builds its
+cache out of place, by
+stacking the layers' keys, values, states and windows, and
+``decode_step`` writes its new entries out of place and returns a cache
+of new tensors: DTensor cannot copy a sharded tensor into a plain one or
+write in place across placements.  With no mesh active every hint
+returns its input and these branches are not taken, so a path on one
+card runs the ops it ran before.
+
 ``forward_train`` is the training loss.  Under autograd the kernels stay
 in the forward and their backward recomputes the plain formula
 (:mod:`repro_torch.models.attention`, :mod:`repro_torch.models.ssm`);
@@ -47,7 +60,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..core.problem import resolve_device
-from .attention import (KVCache, _causal_core, _project_qkv,
+from ..sharding.hints import DP, hint, on_mesh, relayout
+from .attention import (KVCache, _causal_core, _project_out, _project_qkv,
                         causal_attention, decode_attention_step,
                         init_attention)
 from .config import DENSE, HYBRID, MOE, SSM, ModelConfig
@@ -182,6 +196,16 @@ def cast_params(params, dtype: torch.dtype):
 # forward (prefill)
 # ---------------------------------------------------------------------------
 
+def _norm(x, weight, cfg: ModelConfig):
+    """``rms_norm(x)``, the input of a layer's matmuls.  Under a mesh it is
+    gathered over its sequence (``relayout``), as the reference's
+    partitioner gathers a sequence-parallel residual for a tensor-parallel
+    matmul: a matmul flattens (B, S), and a sequence sharded over 'model'
+    flattens to a strided shard, whose redistributions DTensor plans by a
+    graph search that takes minutes an op on a three-axis mesh."""
+    return relayout(rms_norm(x, weight, cfg.rms_eps), DP, None, None)
+
+
 def _residual(x, h, cfg: ModelConfig):
     if cfg.residual_multiplier != 1.0:    # 1.0 * h is h exactly
         h = cfg.residual_multiplier * h
@@ -191,7 +215,7 @@ def _residual(x, h, cfg: ModelConfig):
 def _ffn(block: dict, cfg: ModelConfig, x, dropless: bool = False):
     """The block's feed-forward half on ``rms_norm(x)``: its MoE (with its
     statistics) or its SwiGLU MLP (statistics None)."""
-    xn = rms_norm(x, block["ffn_norm"], cfg.rms_eps)
+    xn = _norm(x, block["ffn_norm"], cfg)
     if "moe" in block:
         return moe_block(block["moe"], cfg, xn, dropless=dropless)
     m = block["mlp"]
@@ -202,7 +226,7 @@ def _attention_block(block: dict, cfg: ModelConfig, x, attention: str):
     """A dense or MoE layer, or a hybrid's shared block, on the full
     sequence: x -> x, MoE statistics (None without an MoE)."""
     h = causal_attention(
-        block["attn"], cfg, rms_norm(x, block["attn_norm"], cfg.rms_eps),
+        block["attn"], cfg, _norm(x, block["attn_norm"], cfg),
         attention=attention)
     x = _residual(x, h, cfg)
     h, stats = _ffn(block, cfg, x)
@@ -221,9 +245,10 @@ def _mamba_layer(params: dict, cfg: ModelConfig, layer: int, x,
                  attention: str, ssm: str):
     """Mamba2 layer ``layer`` on the full sequence, and a hybrid's shared
     block after it where it applies."""
+    x = hint(x, DP, "model", None)
     block = params["blocks"][layer]
     h, _ = ssm_block(block["ssm"], cfg,
-                     rms_norm(x, block["norm"], cfg.rms_eps), ssm=ssm)
+                     _norm(x, block["norm"], cfg), ssm=ssm)
     x = _residual(x, h, cfg)
     if _shared_after(cfg, layer):
         x, _ = _attention_block(params["shared"], cfg, x, attention)
@@ -256,6 +281,7 @@ def _layer(fn, params: dict, cfg: ModelConfig, layer: int, x, *args):
 
 def _dense_layer(params: dict, cfg: ModelConfig, layer: int, x,
                  attention: str):
+    x = hint(x, DP, "model", None)
     return _attention_block(params["blocks"][layer], cfg, x, attention)
 
 
@@ -302,7 +328,7 @@ def forward_logits(params: dict, cfg: ModelConfig, inputs,
                    attention: str = "kernel", ssm: str = "kernel"):
     x = embed_inputs(params, cfg, inputs)
     x, aux = backbone(params, cfg, x, attention, ssm)
-    x = rms_norm(x, params["final_norm"], cfg.rms_eps)
+    x = _norm(x, params["final_norm"], cfg)
     return unembed(params, cfg, x), aux
 
 
@@ -329,17 +355,23 @@ def forward_train(params: dict, cfg: ModelConfig, batch: dict,
 def _prefill_attention(block: dict, cfg: ModelConfig, x, kv, slot: int,
                        attention: str):
     """``_attention_block`` that also writes the prompt's keys and values
-    into ``kv[0][slot]``, ``kv[1][slot]``; MoE statistics are dropped."""
-    b, s = x.shape[0], x.shape[1]
-    xn = rms_norm(x, block["attn_norm"], cfg.rms_eps)
+    into ``kv[0][slot]``, ``kv[1][slot]`` (under a mesh, appends them to
+    the lists ``kv``); MoE statistics are dropped."""
+    s = x.shape[1]
+    xn = _norm(x, block["attn_norm"], cfg)
     positions = torch.arange(s, device=x.device)[None, :]
     q, k, v = _project_qkv(block["attn"], cfg, xn, positions)
-    h = _causal_core(q, k, v, cfg, attention=attention)
-    h = h.reshape(b, s, -1) @ block["attn"]["wo"].to(x.dtype)
+    h = _project_out(block["attn"], _causal_core(q, k, v, cfg,
+                                                 attention=attention),
+                     x.dtype)
     x = _residual(x, h, cfg)
     h, _ = _ffn(block, cfg, x)
-    kv[0][slot, :, :s] = k
-    kv[1][slot, :, :s] = v
+    if isinstance(kv[0], list):
+        kv[0].append(k)
+        kv[1].append(v)
+    else:
+        kv[0][slot, :, :s] = k
+        kv[1][slot, :, :s] = v
     return _residual(x, h, cfg)
 
 
@@ -354,6 +386,7 @@ def prefill(params: dict, cfg: ModelConfig, inputs, max_len: int,
     mamba = _mamba_layers(cfg)
     x = embed_inputs(params, cfg, inputs)
     b, s = x.shape[0], x.shape[1]
+    mesh = on_mesh(x)
     kv = (None, None)
     if cfg.attention_layers:
         if s > max_len:
@@ -361,28 +394,46 @@ def prefill(params: dict, cfg: ModelConfig, inputs, max_len: int,
                              f"max_len={max_len}")
         shape = (cfg.attention_layers, b, max_len, cfg.num_kv_heads,
                  cfg.head_dim)
-        kv = tuple(torch.zeros(shape, dtype=cfg.cdtype(), device=x.device)
-                   for _ in "kv")
+        kv = ([], []) if mesh else tuple(
+            torch.zeros(shape, dtype=cfg.cdtype(), device=x.device)
+            for _ in "kv")
     states = convs = None
     if mamba:
-        states = torch.empty((cfg.num_layers, b, cfg.ssm_heads,
-                              cfg.ssm_head_dim, cfg.ssm_state),
-                             dtype=torch.float32, device=x.device)
-        convs = torch.empty((cfg.num_layers, b, cfg.ssm_conv - 1,
-                             conv_dim(cfg)), dtype=cfg.cdtype(),
-                            device=x.device)
+        if mesh:
+            states, convs = [], []
+        else:
+            states = torch.empty((cfg.num_layers, b, cfg.ssm_heads,
+                                  cfg.ssm_head_dim, cfg.ssm_state),
+                                 dtype=torch.float32, device=x.device)
+            convs = torch.empty((cfg.num_layers, b, cfg.ssm_conv - 1,
+                                 conv_dim(cfg)), dtype=cfg.cdtype(),
+                                device=x.device)
         kv_index = _attention_layer_index(cfg)
         for layer, block in enumerate(params["blocks"]):
-            h, states[layer], convs[layer] = ssm_block(
-                block["ssm"], cfg, rms_norm(x, block["norm"], cfg.rms_eps),
+            x = hint(x, DP, "model", None)
+            h, state, conv = ssm_block(
+                block["ssm"], cfg, _norm(x, block["norm"], cfg),
                 return_conv_tail=True, ssm=ssm)
+            if mesh:
+                states.append(state)
+                convs.append(conv.to(cfg.cdtype()))
+            else:
+                states[layer], convs[layer] = state, conv
             x = _residual(x, h, cfg)
             if _shared_after(cfg, layer):
                 x = _prefill_attention(params["shared"], cfg, x, kv,
                                        kv_index[layer], attention)
     else:
         for layer, block in enumerate(params["blocks"]):
+            x = hint(x, DP, "model", None)
             x = _prefill_attention(block, cfg, x, kv, layer, attention)
+    if mesh:
+        pad = (0, 0, 0, 0, 0, max_len - s)
+        kv = tuple(None if t is None else torch.stack(
+            [torch.nn.functional.pad(e, pad).to(cfg.cdtype()) for e in t])
+            for t in kv)
+        states = None if states is None else torch.stack(states)
+        convs = None if convs is None else torch.stack(convs)
     cache = DecodeCache(kv_k=kv[0], kv_v=kv[1], ssm_state=states,
                         ssm_conv=convs,
                         position=torch.tensor(s, dtype=torch.int32,
@@ -426,15 +477,16 @@ def _decode_attention(block: dict, cfg: ModelConfig, x, cache: DecodeCache,
                       slot: int, attention: str):
     """One token through an attention layer (or a hybrid's shared block)
     whose keys and values are ``cache``'s entry ``slot``; an MoE runs
-    dropless."""
+    dropless.  Returns x and the layer's cache (``cache``'s own entry but
+    under a mesh, where it is written out of place)."""
     kv_l = KVCache(k=cache.kv_k[slot], v=cache.kv_v[slot],
                    length=cache.position)
-    h, _ = decode_attention_step(
+    h, kv_l = decode_attention_step(
         block["attn"], cfg, rms_norm(x, block["attn_norm"], cfg.rms_eps),
         kv_l, attention=attention)
     x = _residual(x, h, cfg)
     h, _ = _ffn(block, cfg, x, dropless=True)
-    return _residual(x, h, cfg)
+    return _residual(x, h, cfg), kv_l
 
 
 def decode_step(params: dict, cfg: ModelConfig, inputs, cache: DecodeCache,
@@ -443,8 +495,13 @@ def decode_step(params: dict, cfg: ModelConfig, inputs, cache: DecodeCache,
     Writes each attention layer's new key and value and each Mamba2
     layer's new state and conv window (the window cast to the cache's
     dtype) into ``cache`` in place and returns (logits (B, 1, V), the
-    cache with ``position + 1``)."""
+    cache with ``position + 1``).  Under a mesh, on a DTensor cache, the
+    entries are written out of place and the returned cache holds new
+    tensors."""
     mamba = _mamba_layers(cfg)
+    mesh = on_mesh(cache.kv_k if cache.kv_k is not None
+                   else cache.ssm_state)
+    new_k, new_v, new_state, new_conv = [], [], [], []
     x = embed_inputs(params, cfg, inputs)
     if mamba:
         kv_index = _attention_layer_index(cfg)
@@ -453,15 +510,30 @@ def decode_step(params: dict, cfg: ModelConfig, inputs, cache: DecodeCache,
                 block["ssm"], cfg, rms_norm(x, block["norm"], cfg.rms_eps),
                 SSMCache(state=cache.ssm_state[layer],
                          conv=cache.ssm_conv[layer]))
-            cache.ssm_state[layer] = new.state
-            cache.ssm_conv[layer] = new.conv
+            if mesh:
+                new_state.append(new.state)
+                new_conv.append(new.conv.to(cache.ssm_conv.dtype))
+            else:
+                cache.ssm_state[layer] = new.state
+                cache.ssm_conv[layer] = new.conv
             x = _residual(x, h, cfg)
             if _shared_after(cfg, layer):
-                x = _decode_attention(params["shared"], cfg, x, cache,
-                                      kv_index[layer], attention)
+                x, kv_l = _decode_attention(params["shared"], cfg, x, cache,
+                                            kv_index[layer], attention)
+                new_k.append(kv_l.k)
+                new_v.append(kv_l.v)
     else:
         for layer, block in enumerate(params["blocks"]):
-            x = _decode_attention(block, cfg, x, cache, layer, attention)
+            x, kv_l = _decode_attention(block, cfg, x, cache, layer,
+                                        attention)
+            new_k.append(kv_l.k)
+            new_v.append(kv_l.v)
+    if mesh:
+        cache = cache._replace(
+            **{name: torch.stack(entries)
+               for name, entries in (("kv_k", new_k), ("kv_v", new_v),
+                                     ("ssm_state", new_state),
+                                     ("ssm_conv", new_conv)) if entries})
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
     return unembed(params, cfg, x), cache._replace(
         position=cache.position + 1)

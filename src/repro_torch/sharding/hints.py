@@ -17,9 +17,20 @@ sequence-parallel attention: shard q's sequence over 'model', keep k/v
 unsharded on the feature dims, and keep the residual stream
 sequence-sharded between layers.
 
-The port's model code calls no hint yet: no path of the port runs the
-model on DTensors on several cards (``models/attention.py``,
-``models/moe.py``).
+The port's model code calls ``hint`` at the counterparts of the
+reference's sites (``models/attention.py``, ``models/moe.py``,
+``models/transformer.py``); where DTensor needs a layout before a view
+that the reference hints after it, the hint sits before the view, and
+each such site says so.  ``relayout`` is the redistribution that a view
+or a split needs under a mesh whatever the hints (the microbatch split of
+``training/train_step.py``, the MoE's token flatten, the sequence gather
+before a layer's matmuls), so ``REPRO_NO_HINTS=1`` does not turn it
+off.  Both add one to
+:data:`redistributions` where the placements change, and nowhere else;
+with no mesh active neither runs an op, so the paths on one card run the
+ops they ran before.  The dry run (``launch/dryrun.py``) is the only
+caller that activates a mesh; no path of the port runs the model on
+DTensors on several cards yet.
 """
 from __future__ import annotations
 
@@ -29,6 +40,15 @@ import os
 DP = "dp"   # sentinel: all data-parallel axes present in the mesh
 
 _ACTIVE: list = []     # the meshes ``use_mesh`` set, innermost last
+
+# redistributions that changed placements since the last
+# reset_redistributions(): "hint" by ``hint``, "layout" by ``relayout``
+redistributions = {"hint": 0, "layout": 0}
+
+
+def reset_redistributions() -> None:
+    for key in redistributions:
+        redistributions[key] = 0
 
 
 @contextlib.contextmanager
@@ -83,6 +103,27 @@ def fitted_spec(shape: dict, x_shape, dims) -> tuple:
     return tuple(spec)
 
 
+def _redistribute(x, dims, key: str, always: bool):
+    """``x`` placed per ``dims`` (fitted to the active mesh), counted under
+    ``key`` where the placements change.  With ``always`` the
+    redistribution is applied where they do not change too: its backward
+    places the gradient as ``x`` is placed, so a view before it can take
+    its gradient."""
+    from torch.distributed.tensor import DTensor
+
+    from .rules import to_placements
+    mesh = active_mesh()
+    if not isinstance(x, DTensor):
+        return x
+    placements = to_placements(fitted_spec(mesh_axis_sizes(), x.shape, dims),
+                               mesh)
+    if tuple(x.placements) == placements and not always:
+        return x
+    if tuple(x.placements) != placements:
+        redistributions[key] += 1
+    return x.redistribute(mesh, placements)
+
+
 def hint(x, *dims):
     """Redistribute ``x`` to the placements of ``dims`` where valid.
 
@@ -93,15 +134,27 @@ def hint(x, *dims):
 
     Set REPRO_NO_HINTS=1 to disable all hints (the unannotated baseline).
     """
-    if os.environ.get("REPRO_NO_HINTS", "0") == "1":
+    if not _ACTIVE or os.environ.get("REPRO_NO_HINTS", "0") == "1":
         return x
-    mesh = active_mesh()
-    if mesh is None:
-        return x
-    from torch.distributed.tensor import DTensor
+    return _redistribute(x, dims, "hint", always=False)
 
-    from .rules import to_placements
-    if not isinstance(x, DTensor):
+
+def relayout(x, *dims):
+    """``hint``'s redistribution for a view or a split that is illegal on
+    ``x``'s placements, or whose gradient is: applied whenever a mesh is
+    active, REPRO_NO_HINTS or not, and where the placements do not change
+    too (see ``_redistribute``); ``x`` itself with no mesh or on a plain
+    tensor."""
+    if not _ACTIVE:
         return x
-    spec = fitted_spec(mesh_axis_sizes(), x.shape, dims)
-    return x.redistribute(mesh, to_placements(spec, mesh))
+    return _redistribute(x, dims, "layout", always=True)
+
+
+def on_mesh(x) -> bool:
+    """Whether a mesh is active and ``x`` is a DTensor: the condition of
+    the model's mesh branches (out-of-place cache writes, per-shard decode
+    attention and SSD scans, the microbatch split)."""
+    if not _ACTIVE:
+        return False
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)

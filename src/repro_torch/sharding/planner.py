@@ -33,7 +33,6 @@ from ..core.constrained import (contiguous_stage_dp, equalize_cardinality,
                                 make_contiguous)
 from ..core.problem import make_problem, resolve_device
 from ..core.refine import refine
-from ..training.tree import map_with_path
 
 _EXPERT_LEAVES = ("moe/gate", "moe/up", "moe/down")
 
@@ -96,6 +95,9 @@ def apply_expert_permutation(params: dict, perm: torch.Tensor) -> dict:
     """Permute every layer's expert-stacked MoE weights (``moe/gate``,
     ``moe/up``, ``moe/down``: dim 0 is the expert) and its router's
     columns (``moe/router``: the last dim) to match."""
+    # imported here: the model code imports ``sharding.hints``, and
+    # ``training`` imports the model code
+    from ..training.tree import map_with_path
     perm = perm.to(torch.int64)
 
     def fix(path, leaf):

@@ -7,7 +7,8 @@ Mamba2 layer), whose backward recomputes the plain formula
 (:mod:`repro_torch.models.attention`, :mod:`repro_torch.models.ssm`).
 Microbatching (gradient accumulation) is a loop over microbatch slices in
 the reference's order: the first slice, then the others added, then the
-sums times ``1/m``.
+sums times ``1/m``.  Under a mesh (the dry run's DTensor batch) the
+split is made legal by an explicit redistribution (:func:`_microbatches`).
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ import torch
 
 from ..models.config import ModelConfig
 from ..models.transformer import forward_train, init_params
+from ..sharding.hints import DP, on_mesh, relayout
 from . import optimizer as opt
 from .tree import flatten, map_tree, unflatten
 
@@ -86,6 +88,22 @@ def value_and_grad(params, cfg: ModelConfig, batch: dict, *,
             unflatten(params, grads))
 
 
+def _microbatches(v: torch.Tensor, m: int) -> list:
+    """The ``m`` microbatches of ``v``: rows ``[i B/m, (i+1) B/m)`` in
+    microbatch i, the reference's assignment.  Under a mesh a batch
+    sharded over the data axes cannot be split so (the microbatch dim
+    does not divide them, or the split would reshape a dim sharded over
+    two axes): it is replicated first, and each microbatch sharded back
+    over the data axes where its rows divide them (a local slice)."""
+    mesh = on_mesh(v)
+    if mesh:
+        v = relayout(v)
+    sliced = v.reshape((m, v.shape[0] // m) + v.shape[1:])
+    if not mesh:
+        return [sliced[i] for i in range(m)]
+    return [relayout(sliced[i], DP) for i in range(m)]
+
+
 def make_train_step(cfg: ModelConfig, hyper: TrainHyper) -> Callable:
     """Returns train_step(state, batch) -> (state, metrics)."""
 
@@ -96,8 +114,7 @@ def make_train_step(cfg: ModelConfig, hyper: TrainHyper) -> Callable:
         m = hyper.microbatches
         if m == 1:
             return single(params, batch)
-        sliced = {k: v.reshape((m, v.shape[0] // m) + v.shape[1:])
-                  for k, v in batch.items()}
+        sliced = {k: _microbatches(v, m) for k, v in batch.items()}
         loss, metrics, grads = single(params, {k: v[0]
                                                for k, v in sliced.items()})
         for i in range(1, m):
