@@ -29,6 +29,19 @@ cell it proves, without hardware:
       raises, or passes ``COLLECTIVE_BUDGET_S``, the cell records
       ``collective_bytes_per_chip: null`` and the op it reached.
 
+The collectives are counted a layer kind at a time (``--collectives
+layers``, the default), as the reference counts a scanned layer body once
+and multiplies it by its trip count: the cell's DTensor run at three
+depths r + k p (p the hybrid's ``attn_period``, else 1; r the depth mod
+p), everything else the cell's own, and each kind's bytes and op count
+fitted exactly in integers as a + b k and taken at k = depth // p.  A
+third depth off the line of the first two makes the count null with its
+reason, never an estimate.  Each reduced run has the budget to itself, so
+a cell's count does not depend on its host's speed.  ``--collectives
+full`` runs the whole function once; ``both`` runs both and fails a cell
+whose counts differ by kind.  A model no deeper than the fit's deepest
+run is run whole in either mode.
+
 The bandwidths and peak are NVIDIA H100 datasheet figures
 (``launch.mesh``); the 256- and 512-rank meshes are the reference's pod
 shapes, a model and not a machine the port has run on.
@@ -38,6 +51,11 @@ Usage:
       --shape train_4k
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh both \\
       --out dryrun_results
+  # one process per arch, then the summary of the merged cells:
+  for a in ...; do python -m repro_torch.launch.dryrun --arch $a \\
+      --mesh both --out DIR & done; wait
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh both \\
+      --out DIR --resume
 """
 from __future__ import annotations
 
@@ -60,6 +78,7 @@ from repro_torch.launch.flops import FlopCounter
 from repro_torch.launch.mesh import (HBM_BANDWIDTH, NVLINK_BANDWIDTH,
                                      PEAK_FLOPS_BF16, make_production_mesh)
 from repro_torch.models import decode_step, init_cache, init_params, prefill
+from repro_torch.models.config import HYBRID
 from repro_torch.sharding import hints, rules
 from repro_torch.training.train_step import (TrainHyper, init_train_state,
                                              make_train_step)
@@ -70,6 +89,7 @@ TEMP_BYTES_REASON = ("no compiler to ask: the port runs eagerly and does "
 # is null with the op it reached (sharding propagation on the 2x16x16 mesh
 # spends minutes on one attention einsum of a 32k-token prefill)
 COLLECTIVE_BUDGET_S = 120.0
+COLLECTIVE_METHODS = ("layers", "full", "both")
 
 
 @dataclasses.dataclass
@@ -100,10 +120,28 @@ def _logits_spec(cfg, mesh, logits) -> tuple:
     return (bshard,) + (None,) * (logits.ndim - 2) + (vshard,)
 
 
+def serving_strategy(cfg, mesh, strategy: str) -> str:
+    """The params' strategy of an inference cell: inference has no
+    optimizer state, so ``fsdp`` becomes ``zero1`` (params over 'model'
+    only: local reads, no per-step weight re-gathers) whenever the
+    model-shard fits comfortably; big MoE stacks keep the (data x model)
+    sharding and pay the per-layer gather."""
+    if strategy != "fsdp":
+        return strategy
+    tp = rules.axis_sizes(mesh).get("model", 1)
+    bytes_p = 2 if cfg.param_dtype == "bfloat16" else 4
+    p_shard_gb = (cfg.param_count() + cfg.shared_block_params()) \
+        * bytes_p / tp / 1e9
+    return "zero1" if p_shard_gb < 8.0 else "fsdp"
+
+
 def build_cell(arch: str, shape_name: str, mesh, *, strategy: str = "fsdp",
                microbatches: int = 1, cfg_overrides: dict | None = None,
-               smoke: bool = False) -> Cell:
-    """The cell's function and its abstract arguments on ``meta``."""
+               smoke: bool = False, pick_strategy: bool = True) -> Cell:
+    """The cell's function and its abstract arguments on ``meta``.  An
+    inference cell's params take :func:`serving_strategy` of its config,
+    or ``strategy`` itself without ``pick_strategy`` (a reduced-depth
+    build keeps its full-depth cell's)."""
     cfg = _config(arch, smoke, cfg_overrides)
     shape = SHAPES[shape_name]
     specs = input_specs(cfg, shape)
@@ -121,16 +159,8 @@ def build_cell(arch: str, shape_name: str, mesh, *, strategy: str = "fsdp",
                     out_specs)
 
     params = init_params(cfg, 0, device="meta")
-    # inference has no optimizer state: shard params over 'model' only
-    # (local reads, no per-step weight re-gathers) whenever the model-shard
-    # fits comfortably; big MoE stacks keep the (data x model) sharding and
-    # pay the per-layer gather
-    if strategy == "fsdp":
-        tp = rules.axis_sizes(mesh).get("model", 1)
-        bytes_p = 2 if cfg.param_dtype == "bfloat16" else 4
-        p_shard_gb = (cfg.param_count() + cfg.shared_block_params()) \
-            * bytes_p / tp / 1e9
-        strategy = "zero1" if p_shard_gb < 8.0 else "fsdp"
+    if pick_strategy:
+        strategy = serving_strategy(cfg, mesh, strategy)
     params_specs = rules.param_specs(cfg, mesh, params, strategy=strategy)
     tok_spec = rules.batch_specs(cfg, mesh, specs)["inputs"]
 
@@ -202,9 +232,84 @@ def _collectives(cell: Cell, dist_args,
     return collectives.stats(counter), None
 
 
+def fit_depths(cfg) -> tuple[int, int, list[int]]:
+    """(p, k0, depths): the period p of the model's layer kinds (a
+    hybrid's ``attn_period``, else 1) and the three depths r + k p,
+    k = k0, k0 + 1, k0 + 2, that the layer count runs (r the depth mod p),
+    k0 the least that gives each depth at least 2 layers and a hybrid at
+    least one period."""
+    p = cfg.attn_period if cfg.family == HYBRID and cfg.attn_period > 0 \
+        else 1
+    r = cfg.num_layers % p
+    k0 = 1 if p > 1 else 0
+    while r + k0 * p < 2:
+        k0 += 1
+    return p, k0, [r + k * p for k in (k0, k0 + 1, k0 + 2)]
+
+
+def fit_line(runs: list[dict], depths: list[int], k0: int,
+             k: int) -> tuple[dict | None, str | None]:
+    """The stats (``collectives.stats``'s keys) at trip count ``k`` of
+    three runs at trip counts k0, k0 + 1, k0 + 2 (``depths`` layers):
+    each kind's bytes and op count a + b k, exactly, or (None, reason)
+    where a third run is off the line of the first two or the line goes
+    below 0 at ``k``."""
+    out = {}
+    for key, what in (("by_kind", "bytes"), ("count", "ops")):
+        out[key] = {}
+        for kind in sorted(set().union(*(r[key] for r in runs))):
+            v = [int(r[key].get(kind, 0)) for r in runs]
+            step = v[1] - v[0]
+            if v[2] - v[1] != step:
+                return None, (f"{what} of {kind} off a line: {v[0]}, "
+                              f"{v[1]}, {v[2]} at {depths[0]}, {depths[1]}, "
+                              f"{depths[2]} layers")
+            value = v[0] + (k - k0) * step
+            if value < 0:
+                return None, (f"{what} of {kind} below 0 at {k} periods: "
+                              f"{v[0]}, {v[1]}, {v[2]} at {depths[0]}, "
+                              f"{depths[1]}, {depths[2]} layers")
+            out[key][kind] = value
+    out["total_bytes"] = sum(out["by_kind"].values())
+    return out, None
+
+
+def _collectives_by_layers(arch: str, shape_name: str, mesh, cfg, *,
+                           strategy: str, microbatches: int,
+                           cfg_overrides: dict | None, smoke: bool):
+    """(stats, reason, depths, seconds a depth): the cell's collectives
+    fitted over the layer counts of :func:`fit_depths` (each a run of the
+    cell at that depth, everything else the cell's own, the params'
+    strategy included), or (None, reason, ...) where a run stops or the
+    fit refuses."""
+    p, k0, depths = fit_depths(cfg)
+    if SHAPES[shape_name].kind != "train":      # the full depth's pick
+        strategy = serving_strategy(cfg, mesh, strategy)
+    runs, seconds = [], []
+    for depth in depths:
+        t0 = time.time()
+        cell = build_cell(arch, shape_name, mesh, strategy=strategy,
+                          microbatches=microbatches, smoke=smoke,
+                          cfg_overrides=dict(cfg_overrides or {},
+                                             num_layers=depth),
+                          pick_strategy=False)
+        coll, reason = _collectives(
+            cell, distribute(cell.args, cell.arg_specs, mesh), mesh)
+        seconds.append(round(time.time() - t0, 2))
+        if coll is None:
+            return None, f"at {depth} layers: {reason}", depths, seconds
+        runs.append(coll)
+    coll, reason = fit_line(runs, depths, k0, cfg.num_layers // p)
+    return coll, reason, depths, seconds
+
+
 def run_cell(arch: str, shape_name: str, multi_pod: bool, mesh=None, *,
              strategy: str = "fsdp", microbatches: int = 1,
-             cfg_overrides: dict | None = None, smoke: bool = False) -> dict:
+             cfg_overrides: dict | None = None, smoke: bool = False,
+             collectives_method: str = "layers") -> dict:
+    if collectives_method not in COLLECTIVE_METHODS:
+        raise ValueError(f"collectives_method must be one of "
+                         f"{COLLECTIVE_METHODS}; got {collectives_method!r}")
     shape = SHAPES[shape_name]
     cfg = _config(arch, smoke, cfg_overrides)
     runnable, reason = shape_is_applicable(cfg, shape)
@@ -240,9 +345,24 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, mesh=None, *,
                 "temp_size_reason": TEMP_BYTES_REASON}
     flops_chip = flops / chips
 
-    t0 = time.time()                                                 # (e)
-    coll, coll_reason = _collectives(cell, dist_args, mesh)
-    t_coll = time.time() - t0
+    # (e): a model no deeper than the fit's deepest run is run whole
+    whole = cfg.num_layers <= fit_depths(cfg)[2][-1]
+    full = full_reason = t_full = None
+    if whole or collectives_method != "layers":
+        t0 = time.time()
+        full, full_reason = _collectives(cell, dist_args, mesh)
+        t_full = time.time() - t0
+    if whole or collectives_method == "full":
+        method, depths, depth_s = "full", [cfg.num_layers], [round(t_full, 2)]
+        coll, coll_reason, t_coll = full, full_reason, t_full
+    else:
+        t0 = time.time()
+        method = "layers"
+        coll, coll_reason, depths, depth_s = _collectives_by_layers(
+            arch, shape_name, mesh, cfg, strategy=strategy,
+            microbatches=microbatches, cfg_overrides=cfg_overrides,
+            smoke=smoke)
+        t_coll = time.time() - t0
 
     compute_s = flops_chip / PEAK_FLOPS_BF16
     tp = sizes.get("model", 1)
@@ -275,7 +395,12 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, mesh=None, *,
         naive_bytes_per_chip=naive_bytes / chips,
         collective_bytes_per_chip=coll["total_bytes"] if coll else None,
         collective_by_kind=coll["by_kind"] if coll else None,
+        collective_count=coll["count"] if coll else None,
         collective_reason=coll_reason,
+        collectives=collectives_method,
+        collective_method=method,
+        collective_depths=depths,
+        collective_depth_s=depth_s,
         compute_term_s=compute_s,
         memory_term_s=floor_memory_s,
         collective_term_s=collective_s,
@@ -284,6 +409,17 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, mesh=None, *,
         if flops_chip else None,
         memory_analysis=mem_info,
     )
+    if collectives_method == "both":
+        cell_rec.update(
+            collective_by_kind_full=full["by_kind"] if full else None,
+            collective_count_full=full["count"] if full else None,
+            collective_reason_full=full_reason,
+            collectives_full_s=round(t_full, 2))
+        if coll and full and (coll["by_kind"], coll["count"]) != (
+                full["by_kind"], full["count"]):
+            cell_rec.update(status="FAIL", error=(
+                f"the layer fit and the full run disagree: "
+                f"{json.dumps(coll)} against {json.dumps(full)}"))
     return cell_rec
 
 
@@ -322,6 +458,13 @@ def main(argv=None):
                          "mb=1 / unblocked attention (the paper-faithful "
                          "naive distribution); tuned = the reference's "
                          "tuning table")
+    ap.add_argument("--collectives", default="layers",
+                    choices=COLLECTIVE_METHODS,
+                    help="layers = each layer kind counted once and "
+                         "multiplied (three reduced depths, fitted "
+                         "exactly); full = the whole function's DTensor "
+                         "run; both = the two, a cell FAIL where they "
+                         "differ by kind")
     args = ap.parse_args(argv)
 
     if args.mode == "baseline":
@@ -352,12 +495,15 @@ def main(argv=None):
                 if args.resume and path and os.path.exists(path):
                     with open(path) as f:
                         cell = json.load(f)
-                    if cell.get("status") in ("OK", "SKIP"):
+                    if cell.get("status") == "SKIP" or (
+                            cell.get("status") == "OK" and
+                            cell.get("collectives") == args.collectives):
                         results.append(cell)
                         print(f"[CACHED {cell['status']}] {tag}")
                         continue
                 try:
                     cell = run_cell(arch, shape_name, multi, mesh=mesh,
+                                    collectives_method=args.collectives,
                                     **cell_knobs(arch, shape_name,
                                                  args.mode))
                 except Exception as e:  # record and continue — unattended run
@@ -375,6 +521,8 @@ def main(argv=None):
                           f"{cell['flops_per_chip']:.3e} coll_bytes/chip="
                           + (f"{coll:.3e}" if coll is not None else
                              f"null ({cell['collective_reason'][:120]})")
+                          + f" by {cell['collective_method']} "
+                          f"{cell['collective_depths']}"
                           + f" dominant_floor={cell['dominant_floor']} "
                           f"({cell['build_s'] + cell['count_s'] + cell['collectives_s']:.1f}"
                           f" s)", flush=True)

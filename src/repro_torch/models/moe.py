@@ -133,12 +133,47 @@ def _dispatch(ids: torch.Tensor, cfg: ModelConfig, *,
                     place=place, keep=keep)
 
 
-def _experts(params: dict, buf: torch.Tensor, dtype) -> torch.Tensor:
-    """SwiGLU over capacity buffers.  buf: (G, E, C, d) -> (G, E, C, d)."""
-    gate = torch.einsum("gecd,edf->gecf", buf, params["gate"].to(dtype))
-    up = torch.einsum("gecd,edf->gecf", buf, params["up"].to(dtype))
+def _swiglu_experts(buf: torch.Tensor, gate_w: torch.Tensor,
+                    up_w: torch.Tensor, down_w: torch.Tensor,
+                    dtype) -> torch.Tensor:
+    gate = torch.einsum("gecd,edf->gecf", buf, gate_w.to(dtype))
+    up = torch.einsum("gecd,edf->gecf", buf, up_w.to(dtype))
     return torch.einsum("gecf,efd->gecd", F.silu(gate) * up,
-                        params["down"].to(dtype))
+                        down_w.to(dtype))
+
+
+def _per_expert_shard(buf):
+    """``_swiglu_experts`` run on each rank's own groups and experts: the
+    buffer's groups over the data axes and experts over 'model', the
+    weights' experts over 'model' and the rest replicated (their FSDP
+    gather over the data axes is DTensor's redistribution of the inputs,
+    and counted).  Each rank then multiplies its own experts with plain
+    local einsums; on DTensors the third product's permuted operand meets
+    a view that its shard's strides do not allow, at many experts a rank
+    and a data axis above 1."""
+    from torch.distributed.tensor.experimental import local_map
+
+    from ..sharding.rules import to_placements
+    mesh = buf.device_mesh
+    sizes = mesh_axis_sizes()
+    rows = list(to_placements(fitted_spec(sizes, buf.shape,
+                                          (DP, "model", None, None)), mesh))
+    experts = list(to_placements(fitted_spec(sizes, buf.shape[1:2],
+                                             ("model",)), mesh))
+    return local_map(_swiglu_experts, out_placements=rows,
+                     in_placements=(rows, experts, experts, experts, None),
+                     device_mesh=mesh, redistribute_inputs=True)
+
+
+def _experts(params: dict, buf: torch.Tensor, dtype) -> torch.Tensor:
+    """SwiGLU over capacity buffers.  buf: (G, E, C, d) -> (G, E, C, d).
+    Under a mesh, on a DTensor buffer, the weights are cast where they
+    lie and the products run per shard (:func:`_per_expert_shard`)."""
+    weights = (params["gate"], params["up"], params["down"])
+    if on_mesh(buf):
+        weights = tuple(w.to(dtype) for w in weights)
+        return _per_expert_shard(buf)(buf, *weights, dtype)
+    return _swiglu_experts(buf, *weights, dtype)
 
 
 def _token_rows(t: torch.Tensor, b: int) -> torch.Tensor:

@@ -307,10 +307,68 @@ def backbone(params: dict, cfg: ModelConfig, x, attention: str = "kernel",
                torch.sum(coact, dim=0))
 
 
+def _vocab_sharded(table) -> bool:
+    from torch.distributed.tensor import Shard
+    return Shard(0) in table.placements
+
+
+def _masked_rows(table, ids, first: int, dtype):
+    """``table[ids - first]`` in ``dtype`` where the id falls in the
+    table's ``len(table)`` rows from ``first``, zero elsewhere."""
+    local = ids - first
+    inside = (local >= 0) & (local < table.shape[0])
+    rows = table[torch.where(inside, local, 0)]
+    return torch.where(inside[..., None], rows, 0).to(dtype)
+
+
+def _lookup_per_shard(table, ids, dtype):
+    """``table[ids]`` in ``dtype`` on a DTensor table whose vocab dim is
+    sharded, without gathering the table: each rank looks up the ids in
+    its own rows, zero for the rest (:func:`_masked_rows`), and the result
+    is a partial sum over the vocab's mesh axes.  A d_model dim sharded
+    over a mesh axis stays sharded over it; the ids are replicated over
+    every axis the table is sharded over and keep their own placement
+    over the others."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    from torch.distributed.tensor.experimental import local_map
+    mesh = table.device_mesh
+    kept = ids.placements if isinstance(ids, DTensor) \
+        else (Replicate(),) * mesh.ndim
+    id_places, out_places = [], []
+    for held, own in zip(table.placements, kept):
+        if held == Shard(0):
+            id_places.append(Replicate())
+            out_places.append(Partial())
+        elif held == Shard(1):
+            id_places.append(Replicate())
+            out_places.append(Shard(ids.ndim))
+        else:
+            id_places.append(own)
+            out_places.append(own)
+    _, offset = compute_local_shape_and_global_offset(
+        table.shape, mesh, table.placements)
+    return local_map(
+        lambda t, i: _masked_rows(t, i, offset[0], dtype),
+        out_placements=out_places,
+        in_placements=(list(table.placements), id_places),
+        device_mesh=mesh, redistribute_inputs=True)(table, ids)
+
+
 def embed_inputs(params: dict, cfg: ModelConfig, inputs):
+    """The (B, S, d) embeddings of ``inputs``, in the compute dtype.
+    Under a mesh, on a table whose vocab dim is sharded, the lookup runs
+    per shard (:func:`_lookup_per_shard`) and its partial sums are reduced
+    onto the residual stream's layout (``relayout``): batch over the data
+    axes and sequence over 'model', a reduce-scatter, or an all-reduce
+    where one token cannot be split (decode)."""
     if cfg.input_kind == "embeddings":
         # modality-frontend stub: inputs ARE (B, S, d) frame embeddings
         x = inputs.to(cfg.cdtype())
+    elif on_mesh(params["embed"]) and _vocab_sharded(params["embed"]):
+        x = relayout(_lookup_per_shard(params["embed"], inputs,
+                                       cfg.cdtype()), DP, "model", None)
     else:
         x = params["embed"][inputs].to(cfg.cdtype())
     if cfg.emb_multiplier != 1.0:          # 1.0 * x is x exactly
